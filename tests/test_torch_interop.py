@@ -1,0 +1,150 @@
+"""The port's copies of the framework-free modules, its state interop with
+the reference, and its independence from jax.
+
+``vslam_tpu_torch`` keeps its own copies of ``config.py``,
+``datasets/synthetic.py`` and ``utils/evaluate.py`` because importing
+``vslam_tpu`` loads jax, which a GPU host running the port need not have;
+these tests hold each copy equal to the original.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vslam_tpu import config as jconfig
+from vslam_tpu.config import small_config as jsmall
+from vslam_tpu.datasets import synthetic as jsyn
+from vslam_tpu.pipeline import tracker as jtracker
+from vslam_tpu.utils import evaluate as jeval
+from vslam_tpu_torch import config, interop
+from vslam_tpu_torch.datasets import synthetic
+from vslam_tpu_torch.pipeline.tracker import TrackerState
+from vslam_tpu_torch.utils import evaluate
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.mark.parametrize("make", ["VSLAMConfig", "small_config"])
+def test_config_copy_equals_reference(make):
+    a = dataclasses.asdict(getattr(config, make)())
+    b = dataclasses.asdict(getattr(jconfig, make)())
+    assert a == b
+    cfg = getattr(config, make)()
+    assert config.VSLAMConfig.from_json(cfg.to_json()) == cfg
+    np.testing.assert_array_equal(cfg.camera.K(),
+                                  getattr(jconfig, make)().camera.K())
+
+
+def test_synthetic_copy_equals_reference():
+    K = jsmall().camera.K()
+    for mod_a, mod_b in ((synthetic, jsyn),):
+        sa = mod_a.make_scene(num_points=300, seed=4)
+        sb = mod_b.make_scene(num_points=300, seed=4)
+        for f in ("xyz", "patches", "color"):
+            np.testing.assert_array_equal(getattr(sa, f), getattr(sb, f))
+        pa = mod_a.make_trajectory(4, step=0.6, seed=4)
+        np.testing.assert_array_equal(pa,
+                                      mod_b.make_trajectory(4, step=0.6,
+                                                            seed=4))
+        np.testing.assert_array_equal(
+            mod_a.render_sequence(K, pa, sa, 256, 192),
+            mod_b.render_sequence(K, pa, sb, 256, 192))
+        for x, y in zip(mod_a.correspondences(K, pa[0], pa[1], sa.xyz, 256,
+                                              192, noise_px=0.3),
+                        mod_b.correspondences(K, pa[0], pa[1], sb.xyz, 256,
+                                              192, noise_px=0.3)):
+            np.testing.assert_array_equal(x, y)
+        ca = mod_a.make_corridor_scene(pa, num_points=200, seed=2)
+        cb = mod_b.make_corridor_scene(pa, num_points=200, seed=2)
+        np.testing.assert_array_equal(ca.xyz, cb.xyz)
+
+
+def test_evaluate_copy_equals_reference():
+    rng = np.random.RandomState(0)
+    gt = jsyn.make_trajectory(20, step=0.5, seed=1).astype(np.float64)
+    est = gt.copy()
+    est[:, :3, 3] = 1.7 * est[:, :3, 3] + rng.randn(20, 3) * 0.05
+    a, b = evaluate.ate_rmse(est, gt), jeval.ate_rmse(est, gt)
+    assert a[0] == b[0]
+    np.testing.assert_array_equal(a[2], b[2])
+    assert evaluate.rpe(est, gt) == jeval.rpe(est, gt)
+
+
+def test_state_round_trip_through_interop():
+    """A reference tracker state (after one step, so map, tracks and
+    descriptors are populated) -> port state -> numpy: every leaf equal,
+    descriptors bit-identical uint32, the packed map layout kept."""
+    cfg = jsmall()
+    scene = jsyn.make_scene(num_points=600, seed=0, extent=(14, 6, 40),
+                            z_min=6.0)
+    poses = jsyn.make_trajectory(3, step=0.6, seed=0)
+    frames = jsyn.render_sequence(cfg.camera.K(), poses, scene, 256, 192)
+    sj = jtracker.bootstrap(jnp.asarray(frames[0]), cfg)
+    sj, _ = jtracker.track_step(sj, jnp.asarray(frames[1]), cfg)
+    ref = jax.tree_util.tree_map(np.asarray, sj)
+    st = interop.from_jax(ref, TrackerState)
+    assert st.map.desc.dtype == torch.int32
+    assert st.map.pt.shape == (cfg.map.capacity, 24)
+    assert st.map.desc.shape == (cfg.map.capacity * cfg.map.obs_per_point, 8)
+    assert isinstance(st.key, torch.Generator)
+    back = interop.to_numpy(st)
+
+    def check(want, got, path):
+        for f in dataclasses.fields(want):
+            w = getattr(want, f.name)
+            if dataclasses.is_dataclass(w):
+                check(w, got[f.name], f"{path}.{f.name}")
+            elif f.name != "key":
+                g = got[f.name]
+                assert g.dtype == w.dtype and g.shape == w.shape, path
+                np.testing.assert_array_equal(g, w, err_msg=f"{path}.{f.name}")
+    check(ref, back, "state")
+    assert int(ref.map.size) > 0 and ref.pend_valid.any()
+    # dicts with the same field names convert too
+    st2 = interop.from_jax(back, TrackerState)
+    assert torch.equal(st2.map.desc, st.map.desc)
+
+
+def test_port_imports_without_jax():
+    """Every module of vslam_tpu_torch imports with jax and flax blocked."""
+    code = (
+        "import sys, importlib, pkgutil\n"
+        "for m in ('jax', 'jaxlib', 'flax'):\n"
+        "    sys.modules[m] = None\n"
+        "import vslam_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__,"
+        " 'vslam_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "assert 'vslam_tpu' not in sys.modules\n"
+        "print(len(names))\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 20
+
+
+def test_chip_smoke_refuses_without_a_gpu(tmp_path):
+    """chip_smoke.py exits nonzero with no result line when no CUDA device
+    is visible, and when it sits alone in a directory."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    r = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
+    alone = tmp_path / "chip_smoke.py"
+    alone.write_text((REPO / "chip_smoke.py").read_text())
+    r = subprocess.run([sys.executable, str(alone)], cwd=tmp_path,
+                       env=dict(env, PYTHONPATH=""), capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
