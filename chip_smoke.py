@@ -13,18 +13,34 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
      (hits in both tiers), 3072 keypoints, exact;
   5. the tracking step on CUDA vs on the CPU (plain versions), small
      config, the same injected RANSAC samples, per-frame tolerances;
-  6. the main path: bootstrap + 11 ``track_step`` of the default config
+  6. the tracking step: bootstrap + 11 ``track_step`` of the default config
      (1248x384, 3072 keypoints, 1024 hypotheses, map capacity 131072) on
      CUDA, after a warm-up. Launch counters are reset just before and read
      just after; the steps must not synchronize with the host; at least 80%
      of frames must succeed, the median inlier count must exceed 50 and the
      map must grow. Prints ms/frame.
+  7. map maintenance (``evict_lru``, ``compact``, ``remap_ids``) on phase
+     4's map, CUDA against the CPU, exact;
+  8. the main path: ``SLAMSystem.process`` of the default config over 31
+     frames (6 keyframes, the window-BA attempt at keyframe 5), then
+     ``run_global_ba``. Counters reset just before, read just after; at
+     most 2 host syncs per ordinary frame, >= 80% of frames tracked,
+     ATE < 0.5, global BA lowers its cost with nothing truncated, and the
+     whole state stays float32 on the card. Prints ms/frame by frame kind
+     and the BA event's outcome;
+  9. the full-width window BA problem (20 cameras x 8192 points x 16
+     observation slots) solved on CUDA and on the CPU: costs within 1e-4
+     (initial) and 1e-3 (final) relative, equal accept flags. Prints ms per
+     solve and per LM iteration, window and global (CUDA events);
+ 10. the bounded-map scenario of tests/test_map_lifecycle.py on CUDA
+     (capacity 512, 24 frames): maintenance runs, no insert drops.
 
-The line before the last is one JSON object per kernel (route, source,
-the TPU kernel it replaces, launches on the main path, max |error| vs the
-plain version, kernel and plain times); then the nvidia-smi line; the last
-line is ``{"ok": true, "device": {...}}``. No GPU: exits 2 and prints no
-result.
+Each phase prints its seconds. The line before the last is one JSON object
+per kernel (route, source, the TPU kernel it replaces, launches on the
+main path of phase 8 and on the tracking step of phase 6, max |error| vs
+the plain version, kernel and plain times); then the nvidia-smi line; the
+last line is ``{"ok": true, "device": {...}}``. No GPU: exits 2 and prints
+no result.
 """
 from __future__ import annotations
 
@@ -148,14 +164,15 @@ def k2_inputs(torch, dev, cfg):
     return dict(muv=muv, vis=vis, last_seen=m.last_seen, dcount=m.desc_count,
                 desc=m.desc, size=m.size,
                 frame_idx=torch.tensor(frame, dtype=torch.int32, device=dev),
-                kp_uv=t(kp_uv), kp_free=t(kp_free), kp_desc=t(kp_desc))
+                kp_uv=t(kp_uv), kp_free=t(kp_free), kp_desc=t(kp_desc)), m
 
 
 def check_k2(torch, dev, cfg, failures):
+    """Returns K2's numbers and the map it searched (phase 7 reuses it)."""
     from vslam_tpu_torch.mapping import point_map
     from vslam_tpu_torch.ops import associate as k2
 
-    args = k2_inputs(torch, dev, cfg)
+    args, m = k2_inputs(torch, dev, cfg)
     kw = dict(point_map.gates(cfg.matching), block=cfg.map.block_size)
     got = k2.associate_cuda(**args, **kw)
     want = k2.associate_plain(**args, **kw)
@@ -178,17 +195,44 @@ def check_k2(torch, dev, cfg, failures):
     plain_ms = _time_ms(torch, lambda: k2.associate_plain(**args, **kw),
                         reps=5)
     print(f"K2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms), m
 
 
-def _render(cfg, n_frames, scene_kw, step, seed):
+def _render(cfg, n_frames, scene_kw, step, seed, **traj_kw):
     from vslam_tpu_torch.datasets import synthetic
 
     K = cfg.camera.K()
     W, H = cfg.camera.width, cfg.camera.height
     scene = synthetic.make_scene(seed=seed, **scene_kw)
-    poses = synthetic.make_trajectory(n_frames, step=step, seed=seed)
+    poses = synthetic.make_trajectory(n_frames, step=step, seed=seed,
+                                      **traj_kw)
     return synthetic.render_sequence(K, poses, scene, W, H), poses
+
+
+# bench.py's scene: the main path's (phases 6 and 8)
+BENCH_SCENE = dict(num_points=12000, extent=(80, 15, 160), z_min=5.0)
+
+
+def _moved(state, dev):
+    """A copy of a dataclass of tensors on another device."""
+    import dataclasses
+    return type(state)(**{f.name: getattr(state, f.name).to(dev)
+                          for f in dataclasses.fields(state)})
+
+
+def _tensors(obj, path):
+    """(path, tensor) of every tensor in nested dataclasses / tuples."""
+    import dataclasses
+
+    import torch
+    if isinstance(obj, torch.Tensor):
+        yield path, obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from _tensors(getattr(obj, f.name), f"{path}.{f.name}")
+    elif isinstance(obj, tuple):
+        for i, v in enumerate(obj):
+            yield from _tensors(v, f"{path}[{i}]")
 
 
 def check_step_vs_cpu(torch, dev, failures):
@@ -253,8 +297,7 @@ def run_main_path(torch, dev, failures):
     cfg = VSLAMConfig()
     n_frames = 12
     t0 = time.perf_counter()
-    frames_np, poses = _render(cfg, n_frames, dict(
-        num_points=12000, extent=(80, 15, 160), z_min=5.0), 1.0, 0)
+    frames_np, poses = _render(cfg, n_frames, BENCH_SCENE, 1.0, 0)
     frames = torch.from_numpy(np.stack(frames_np)).to(dev)
     print(f"rendered {n_frames} frames of {cfg.camera.width}x"
           f"{cfg.camera.height} in {time.perf_counter() - t0:.1f} s")
@@ -314,6 +357,284 @@ def run_main_path(torch, dev, failures):
     return launches, ms_frame
 
 
+def check_lifecycle(torch, dev, m, failures):
+    """Phase 7: evict_lru, compact and remap_ids on phase 4's map (capacity
+    131072, size 51200, last_seen ages 0..15: heavy ties), CUDA against the
+    CPU, every field exact. min_free = capacity // 8 leaves the map as it
+    is (51200 alive fit); capacity - size // 2 evicts half of it, the order
+    among equal ages decided by slot index."""
+    import dataclasses
+
+    from vslam_tpu_torch.mapping import point_map
+
+    C, size = m.capacity, int(m.size)
+    rng = np.random.RandomState(7)
+    # id holders as the pipeline remaps them: the keyframe ring's obs_pid
+    ids = torch.from_numpy(rng.randint(-1, size, (40, 3072))
+                           .astype(np.int32))
+    m_cpu, ids_dev = _moved(m, "cpu"), ids.to(dev)
+    n_alive = int(m_cpu.alive[:size].sum())
+
+    def run(mm, ii, min_free):
+        ev = point_map.evict_lru(mm, min_free)
+        m2, remap = point_map.compact(ev)
+        return ev.alive, m2, remap, point_map.remap_ids(ii, remap)
+
+    for min_free in (C // 8, C - size // 2):
+        got = run(m, ids_dev, min_free)
+        want = run(m_cpu, ids, min_free)
+        torch.cuda.synchronize()
+        bad = [f.name for f in dataclasses.fields(want[1])
+               if not torch.equal(getattr(got[1], f.name).cpu(),
+                                  getattr(want[1], f.name))]
+        for name, g, w in (("evicted", got[0], want[0]),
+                           ("remap", got[2], want[2]),
+                           ("remap_ids", got[3], want[3])):
+            if not torch.equal(g.cpu(), w):
+                bad.append(name)
+        n_ev = int((m_cpu.alive & ~want[0]).sum())
+        ms = _time_ms(torch, lambda: run(m, ids_dev, min_free), reps=5)
+        print(f"lifecycle C={C} size={size} min_free={min_free}: evicted "
+              f"{n_ev}, size after {int(want[1].size)}, CUDA == CPU: "
+              f"{not bad}; evict+compact+remap {ms:.3f} ms")
+        if bad:
+            failures.append(f"lifecycle min_free={min_free}: {bad} differ")
+        want_ev = max(n_alive - (C - min_free), 0)
+        if n_ev != want_ev or int(want[1].size) != n_alive - n_ev:
+            failures.append(f"lifecycle: evicted {n_ev}, want {want_ev}")
+    if want_ev == 0:
+        failures.append("lifecycle: the second min_free evicted nothing")
+
+
+def run_slam_path(torch, dev, failures):
+    """Phase 8, the slice's main path: ``SLAMSystem.process`` of the default
+    config on bench.py's scene, 31 frames at 1 m steps (keyframes every 5th
+    frame; the window-BA attempt at keyframe 5, frame 25), then
+    ``run_global_ba``. Launch counters reset just before, read just after.
+    Each ``process`` runs under ``set_sync_debug_mode("warn")`` and its
+    host syncs are counted; the host clock per frame is taken between two
+    ``synchronize()``."""
+    from vslam_tpu_torch.config import VSLAMConfig
+    from vslam_tpu_torch.core.types import empty_map
+    from vslam_tpu_torch.ops import associate as k2
+    from vslam_tpu_torch.ops import hamming
+    from vslam_tpu_torch.optimizer import ba
+    from vslam_tpu_torch.pipeline import keyframes, tracker
+    from vslam_tpu_torch.pipeline.slam import SLAMSystem
+    from vslam_tpu_torch.utils import evaluate
+
+    cfg = VSLAMConfig()
+    n_frames = 31
+    t0 = time.perf_counter()
+    frames_np, gt = _render(cfg, n_frames, BENCH_SCENE, 1.0, 0)
+    frames = torch.from_numpy(np.stack(frames_np)).to(dev)
+    print(f"rendered {n_frames} frames in {time.perf_counter() - t0:.1f} s")
+    # warm-up: the solver's first-call costs (cuSOLVER, allocator) at the
+    # window's shapes, off the clock (phase 6 warmed the step)
+    wp0 = keyframes.build_window_problem(
+        keyframes.empty_store(40, cfg.frontend.max_keypoints, dev),
+        empty_map(cfg.map.capacity, cfg.map.obs_per_point, dev), cfg,
+        free_tail=cfg.ba.free_cams, prov_min_obs=99)
+    ba.solve_robust(wp0.problem, tracker._K(cfg, dev), cfg.ba)
+    torch.cuda.synchronize()
+
+    s = SLAMSystem(cfg, dev)
+    hamming.launches = 0
+    k2.launches = 0
+    infos, wall, syncs, sites = [], [], [], []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i in range(n_frames):
+            torch.cuda.synchronize()
+            n0 = len(caught)
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("warn")
+            infos.append(s.process(frames[i]))
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            wall.append(time.perf_counter() - t0)
+            mine = [f"{w.filename}:{w.lineno}" for w in caught[n0:]
+                    if "called a synchronizing" in str(w.message)]
+            syncs.append(len(mine))
+            sites.append(mine)
+    launches = {"hamming": hamming.launches, "associate": k2.launches}
+
+    kinds = ["bootstrap"] + ["ba" if x["ran_ba"] else
+                             "keyframe" if x["keyframe"] else "ordinary"
+                             for x in infos[1:]]
+    ms = {}
+    for k in ("ordinary", "keyframe", "ba"):
+        sel = [1e3 * w for w, kk in zip(wall, kinds) if kk == k]
+        ms[k] = (float(np.mean(sel)) if sel else None, len(sel))
+        print(f"process {k} frames: {len(sel)}, "
+              + (f"{ms[k][0]:.2f} ms/frame (host clock, synchronized)"
+                 if sel else "none"))
+    ord_syncs = [n for n, k in zip(syncs, kinds) if k == "ordinary"]
+    print(f"host syncs per ordinary frame: max {max(ord_syncs)}, "
+          f"mean {np.mean(ord_syncs):.2f}; per frame {syncs}")
+    for n, k, site in zip(syncs, kinds, sites):
+        if k == "ordinary" and n > 2:
+            print(f"  ordinary frame with {n} syncs: {site}")
+    events = [r for r in s.metrics.records if r.get("kind") == "ba"]
+    for e in events:
+        outcome = (f"skipped ({e['skipped']})" if "skipped" in e else
+                   "solved, " + ("accepted" if e["ba_result_accepted"]
+                                 else "rejected by the trust region"))
+        print(f"window BA at frame {e['frame']}: {outcome}; "
+              + ", ".join(f"{k}={v}" for k, v in e.items()
+                          if k not in ("kind", "frame", "t", "skipped")))
+    ok = np.array([bool(x["success"]) for x in infos[1:]])
+    est = s.poses()
+    ate = evaluate.ate_rmse(est, gt.astype(np.float64))[0]
+    print(f"SLAM path: {n_frames} frames, tracked {int(ok.sum())}/{len(ok)}, "
+          f"keyframes {int(s.kf_store.count)}, ATE {ate:.4f}, map "
+          f"{infos[-1]['map_size']}, launches {launches}")
+    if ok.mean() < 0.8:
+        failures.append(f"SLAM path tracked only {int(ok.sum())}/{len(ok)}")
+    if not np.isfinite(est).all() or not ate < 0.5:
+        failures.append(f"SLAM path trajectory off: ATE {ate}")
+    if max(ord_syncs) > 2:
+        failures.append(f"{max(ord_syncs)} host syncs in an ordinary frame")
+    if not any(x["ran_ba"] for x in infos[1:]) or not events:
+        failures.append("window BA was never attempted")
+    for name, n in launches.items():
+        if n < n_frames - 1:
+            failures.append(f"{name} kernel launched {n} times in the SLAM "
+                            f"path's {n_frames - 1} tracked frames")
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    stats = s.run_global_ba()
+    end.record()
+    torch.cuda.synchronize()
+    ms_global = start.elapsed_time(end)
+    cov = s.last_global_ba_coverage
+    init, fin = float(stats.initial_cost), float(stats.final_cost)
+    kf_frames = s.kf_store.kf_frame.cpu().numpy()
+    kf_ate = evaluate.ate_rmse(
+        s.keyframe_poses(),
+        gt[np.sort(kf_frames[kf_frames >= 0])].astype(np.float64))[0]
+    print(f"global BA: {ms_global:.2f} ms (CUDA events, whole call), cost "
+          f"{init:.2f} -> {fin:.2f}, accepted "
+          f"{int(stats.accepted.sum())}/{stats.accepted.numel()} in the last "
+          f"round, coverage {cov}, keyframe ATE after {kf_ate:.4f}")
+    if not fin < init:
+        failures.append(f"global BA did not reduce its cost: {init} -> {fin}")
+    if cov["dropped_points"] or cov["dropped_obs"]:
+        failures.append(f"global BA truncated its problem: {cov}")
+    if not (np.isfinite(s.poses()).all()
+            and np.isfinite(s.keyframe_poses()).all()):
+        failures.append("non-finite poses after global BA")
+    held = list(_tensors(s.state, "state")) + list(
+        _tensors(s.kf_store, "kf_store")) + list(
+        _tensors(s.last_ba_stats, "stats"))
+    off = [p for p, t in held if not t.is_cuda]
+    if off:
+        failures.append(f"state left the card: {off}")
+    wide = [p for p, t in held if t.dtype == torch.float64]
+    if wide:
+        failures.append(f"float64 in the state: {wide}")
+    return s, launches, ms, ms_global
+
+
+def check_ba(torch, dev, s, failures):
+    """Phase 9: the full-width window problem from phase 8's final store
+    and map, built with ``_run_window_ba``'s call; ``solve_robust`` on
+    CUDA and on the CPU from the same inputs. Then ms per solve and per LM
+    iteration (CUDA events) for the window and the global problem."""
+    import dataclasses
+
+    from vslam_tpu_torch.optimizer import ba
+    from vslam_tpu_torch.pipeline import keyframes
+
+    cfg = s.cfg
+    wp = keyframes.build_window_problem(
+        s.kf_store, s.state.map, cfg, free_tail=cfg.ba.free_cams,
+        prov_min_obs=99)
+    p = wp.problem
+    Kd = s._K
+    got_p, got = ba.solve_robust(p, Kd, cfg.ba, reject_px=5.0, rounds=2)
+    t0 = time.perf_counter()
+    want_p, want = ba.solve_robust(_moved(p, "cpu"), Kd.cpu(), cfg.ba,
+                                   reject_px=5.0, rounds=2)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    gi, gf = float(got.initial_cost), float(got.final_cost)
+    wi, wf = float(want.initial_cost), float(want.final_cost)
+    same_acc = torch.equal(got.accepted.cpu(), want.accepted)
+    dT = float((got_p.T_cw.cpu() - want_p.T_cw).abs().max())
+    C, P, K = p.num_cams, *p.obs_cam.shape
+    print(f"window BA {C}x{P}x{K} (valid cams {int(wp.win_valid.sum())}, "
+          f"live points {int(p.point_mask.sum())}, obs "
+          f"{int(p.obs_mask.sum())}): cost CUDA {gi:.4f} -> {gf:.4f}, CPU "
+          f"{wi:.4f} -> {wf:.4f}; accepted CUDA "
+          f"{got.accepted.cpu().tolist()} CPU {want.accepted.tolist()}; max "
+          f"|T_cw diff| {dT:.2e}; CPU solve_robust {cpu_ms:.1f} ms (host)")
+    if not abs(gi - wi) <= 1e-4 * abs(wi):
+        failures.append(f"window BA initial cost CUDA {gi} vs CPU {wi}")
+    if not abs(gf - wf) <= 1e-3 * abs(wf):
+        failures.append(f"window BA final cost CUDA {gf} vs CPU {wf}")
+    if not same_acc:
+        failures.append("window BA accept flags differ CUDA vs CPU")
+    if not gf < gi:
+        failures.append(f"window BA did not reduce its cost: {gi} -> {gf}")
+
+    it = cfg.ba.iterations
+    ms_solve = _time_ms(torch, lambda: ba.solve(p, Kd, cfg.ba), reps=3)
+    ms_robust = _time_ms(torch, lambda: ba.solve_robust(
+        p, Kd, cfg.ba, reject_px=5.0, rounds=2), reps=3)
+    print(f"window BA {C}x{P}x{K} on CUDA: {ms_solve:.2f} ms/solve "
+          f"({ms_solve / it:.3f} ms/iteration, {it} iterations), "
+          f"solve_robust (2 rounds) {ms_robust:.2f} ms (CUDA events)")
+
+    cov = s.last_global_ba_coverage
+    gcfg = dataclasses.replace(cfg.ba, huber_delta=1.5,
+                               max_obs_per_point=cov["obs_slots"])
+    gwp = keyframes.build_window_problem(
+        s.kf_store, s.state.map, cfg.replace(ba=gcfg),
+        window=s.kf_store.ring_size, max_points=cov["max_points"])
+    gp = gwp.problem
+    ms_g = _time_ms(torch, lambda: ba.solve(gp, Kd, gcfg), reps=3)
+    Cg, Pg, Kg = gp.num_cams, *gp.obs_cam.shape
+    assembly = "onehot" if Cg <= gcfg.onehot_max_cams else "scatter"
+    print(f"global BA {Cg}x{Pg}x{Kg} ({assembly} assembly) on CUDA: "
+          f"{ms_g:.2f} ms/solve ({ms_g / it:.3f} ms/iteration) (CUDA events)")
+    return dict(window_ms_solve=ms_solve, window_ms_iter=ms_solve / it,
+                window_ms_robust=ms_robust, global_ms_solve=ms_g,
+                global_ms_iter=ms_g / it)
+
+
+def run_bounded_map(torch, dev, failures):
+    """Phase 10: tests/test_map_lifecycle.py's bounded-map scenario on
+    CUDA: small config, capacity 512, 24 frames, BA off. Maintenance must
+    run, no insert may drop, the map stays within capacity and tracking
+    survives the id remap."""
+    from vslam_tpu_torch.config import MapConfig, small_config
+    from vslam_tpu_torch.pipeline.slam import SLAMSystem
+
+    cfg = small_config().replace(map=MapConfig(capacity=512, obs_per_point=4,
+                                               block_size=32))
+    frames, _ = _render(cfg, 24, dict(num_points=3000, extent=(40, 10, 80),
+                                      z_min=5.0), 0.6, 3, yaw_rate=0.01)
+    s = SLAMSystem(cfg, dev, enable_ba=False)
+    infos = [s.process(torch.from_numpy(f).to(dev)) for f in frames]
+    sizes = [x["map_size"] for x in infos[1:]]
+    print(f"bounded map: maintenance runs {s.maintenance_runs}, dropped "
+          f"inserts {s.dropped_inserts_total}, map size max {max(sizes)}, "
+          f"last 5 tracked {[x['success'] for x in infos[-5:]]}, last "
+          f"inliers {infos[-1]['num_inliers']}")
+    if s.maintenance_runs < 1:
+        failures.append("bounded map: maintenance never ran")
+    if s.dropped_inserts_total:
+        failures.append(f"bounded map: {s.dropped_inserts_total} inserts "
+                        "dropped")
+    if max(sizes) > 512:
+        failures.append(f"bounded map: size {max(sizes)} > capacity 512")
+    if not all(x["success"] for x in infos[-5:]) \
+            or not infos[-1]["num_inliers"] > 30:
+        failures.append("bounded map: tracking lost after maintenance")
+
+
 def main() -> int:
     import torch
 
@@ -337,26 +658,58 @@ def main() -> int:
         if "registers" in line or "spill" in line or "error" in line:
             print("  ptxas:", line.strip())
 
-    k1 = check_k1(torch, dev, failures)
-    k2 = check_k2(torch, dev, VSLAMConfig(), failures)
-    check_step_vs_cpu(torch, dev, failures)
-    launches, ms_frame = run_main_path(torch, dev, failures)
+    clock = [time.perf_counter()]
 
+    def phase_done(n):
+        now = time.perf_counter()
+        print(f"phase {n}: {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    phase_done(2)
+    k1 = check_k1(torch, dev, failures)
+    phase_done(3)
+    k2, k2_map = check_k2(torch, dev, VSLAMConfig(), failures)
+    phase_done(4)
+    check_step_vs_cpu(torch, dev, failures)
+    phase_done(5)
+    step_launches, ms_frame = run_main_path(torch, dev, failures)
+    phase_done(6)
+    check_lifecycle(torch, dev, k2_map, failures)
+    del k2_map
+    phase_done(7)
+    system, launches, ms_kind, ms_global = run_slam_path(torch, dev,
+                                                         failures)
+    phase_done(8)
+    ba_ms = check_ba(torch, dev, system, failures)
+    del system
+    phase_done(9)
+    run_bounded_map(torch, dev, failures)
+    phase_done(10)
+
+    # launches: the SLAM path's (phase 8); the tracking step's own run
+    # (phase 6) is kept beside it
     kernels = [
         dict(name="hamming", route="cuda",
              source="vslam_tpu_torch/csrc/hamming.cu",
              replaces="vslam_tpu/ops/pallas_hamming.py:50",
-             launches=launches["hamming"], **k1),
+             launches=launches["hamming"],
+             launches_track_step=step_launches["hamming"], **k1),
         dict(name="associate", route="cuda",
              source="vslam_tpu_torch/csrc/associate.cu",
              replaces="vslam_tpu/ops/pallas_associate.py:71",
-             launches=launches["associate"], **k2),
+             launches=launches["associate"],
+             launches_track_step=step_launches["associate"], **k2),
     ]
     for f in failures:
         print("FAIL:", f)
     if failures:
         return 1
-    print(f"main path ms/frame: {ms_frame:.3f} ({name}; {smi})")
+    print(f"main path ms/frame: track_step {ms_frame:.3f}; process "
+          + ", ".join(f"{k} {v[0]:.3f} (n={v[1]})" for k, v in ms_kind.items()
+                      if v[0] is not None)
+          + f"; global BA {ms_global:.3f} ms; "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ba_ms.items())
+          + f" ({name}; {smi})")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

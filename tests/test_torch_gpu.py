@@ -8,18 +8,23 @@ repository's conftest, which imports jax:
 
 The plain versions are held to the JAX reference on the CPU by
 tests/test_torch_kernels.py; here the kernels are held to the plain
-versions, exactly, on the same device tensors.
+versions, exactly, on the same device tensors. Map maintenance and the BA
+solve, plain torch held to the reference by tests/test_torch_map_lifecycle.py
+and tests/test_torch_ba.py, are held on the card to their CPU runs.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from vslam_tpu_torch.config import small_config
+from vslam_tpu_torch.config import BAConfig, small_config
 from vslam_tpu_torch.core import camera as cam
-from vslam_tpu_torch.core.types import empty_map
+from vslam_tpu_torch.core.types import PT_COLS, MapState, empty_map
 from vslam_tpu_torch.mapping import point_map
 from vslam_tpu_torch.ops import associate as k2
 from vslam_tpu_torch.ops import hamming as k1
+from vslam_tpu_torch.optimizer import ba
 
 pytestmark = pytest.mark.gpu
 
@@ -117,6 +122,111 @@ def test_k2_skips_chunks_past_the_cursor(cuda):
     # the kernel's chunks are 2048 points: only chunk 0 starts below size
     assert int(pid.max()) < 2048
     assert int((pid >= 0).sum()) > 0
+
+
+def _to(state, dev):
+    return type(state)(**{f.name: getattr(state, f.name).to(dev)
+                          for f in dataclasses.fields(state)})
+
+
+def _random_map(seed, capacity=4096, k=4, n=3000, n_ages=6):
+    """A map filled to ``n`` with random payload and archive, ``last_seen``
+    drawn from a few frames (heavy ties), a sixth retired, a quarter
+    provisional."""
+    rng = np.random.RandomState(seed)
+    live = np.arange(capacity) < n
+    pt = rng.randn(capacity, PT_COLS).astype(np.float32) * live[:, None]
+    desc = rng.randint(-2 ** 31, 2 ** 31, (capacity * k, 8),
+                       dtype=np.int64).astype(np.int32)
+    desc *= np.repeat(live, k)[:, None]
+    t = torch.from_numpy
+    return MapState(
+        pt=t(pt), desc=t(desc),
+        desc_count=t((rng.randint(1, 2 * k, capacity) * live)
+                     .astype(np.int32)),
+        alive=t(live & (rng.rand(capacity) > 1 / 6)),
+        last_seen=t((rng.randint(0, n_ages, capacity) * live)
+                    .astype(np.int32)),
+        prov=t(live & (rng.rand(capacity) < 0.25)),
+        size=torch.tensor(n, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("min_free", [2048, 3072])
+def test_evict_and_compact_on_cuda_match_cpu(cuda, min_free):
+    """Map maintenance on the card against the CPU, exact: the stable sort
+    breaks last_seen ties by slot index on both."""
+    m = _random_map(min_free)
+    outs = []
+    for dev in ("cpu", cuda):
+        ev = point_map.evict_lru(_to(m, dev), min_free)
+        m2, remap = point_map.compact(ev)
+        outs.append((ev.alive, m2, remap))
+    (ev_c, m_c, r_c), (ev_g, m_g, r_g) = outs
+    assert torch.equal(ev_g.cpu(), ev_c)
+    assert int((m.alive & ~ev_c).sum()) > 0      # premise: evictions
+    for f in dataclasses.fields(m_c):
+        assert torch.equal(getattr(m_g, f.name).cpu(), getattr(m_c, f.name)), \
+            f.name
+    assert torch.equal(r_g.cpu(), r_c)
+    assert int(m_c.size) == 4096 - min_free
+
+
+def _rodrigues(w):
+    th = np.linalg.norm(w)
+    k = w / max(th, 1e-12)
+    Kx = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * Kx + (1 - np.cos(th)) * Kx @ Kx
+
+
+def _ba_problem(seed=0, n_cams=6, n_pts=300, k=6):
+    """Cameras stepping along +z, landmarks ahead, every point seen by up to
+    k cameras with 0.5 px noise; poses and points perturbed."""
+    rng = np.random.RandomState(seed)
+    Kc = CFG.camera.K().astype(np.float64)
+    T = np.tile(np.eye(4), (n_cams, 1, 1))
+    for c in range(n_cams):
+        T[c, :3, :3] = _rodrigues(rng.randn(3) * 0.01)
+        T[c, :3, 3] = -T[c, :3, :3] @ np.array([0.1 * c, 0.0, 0.6 * c])
+    X = np.stack([rng.uniform(-6, 6, n_pts), rng.uniform(-3, 3, n_pts),
+                  rng.uniform(8, 25, n_pts)], 1)
+    obs_cam = np.zeros((n_pts, k), np.int32)
+    obs_uv = np.zeros((n_pts, k, 2), np.float32)
+    obs_mask = np.zeros((n_pts, k), bool)
+    for p in range(n_pts):
+        cams = np.sort(rng.choice(n_cams, rng.randint(2, k + 1),
+                                  replace=False))
+        for j, c in enumerate(cams):
+            xc = T[c, :3, :3] @ X[p] + T[c, :3, 3]
+            uv = (Kc @ (xc / xc[2]))[:2] + rng.randn(2) * 0.5
+            obs_cam[p, j], obs_uv[p, j], obs_mask[p, j] = c, uv, True
+    T0 = T.copy()
+    T0[2:, :3, 3] += rng.randn(n_cams - 2, 3) * 0.05
+    t = lambda a, dt=None: torch.from_numpy(np.asarray(a, dt))
+    return ba.BAProblem(
+        T_cw=t(T0, np.float32),
+        cam_fixed=t(np.arange(n_cams) < 2), cam_mask=t(np.ones(n_cams, bool)),
+        points=t(X + rng.randn(n_pts, 3) * 0.05, np.float32),
+        point_mask=t(np.ones(n_pts, bool)), obs_cam=t(obs_cam),
+        obs_uv=t(obs_uv), obs_mask=t(obs_mask))
+
+
+@pytest.mark.parametrize("assembly", ["onehot", "scatter"])
+def test_ba_solve_on_cuda_matches_cpu(cuda, assembly):
+    """The LM solve on the card against the CPU from the same inputs: the
+    scatter assembly accumulates in another order on the card, so costs are
+    held to 1e-4 relative and poses to 1e-4, with equal accept flags."""
+    problem = _ba_problem()
+    cfg = BAConfig(iterations=8, schur_assembly=assembly)
+    Kc = torch.from_numpy(CFG.camera.K())
+    ps_c, st_c = ba.solve(problem, Kc, cfg)
+    ps_g, st_g = ba.solve(_to(problem, cuda), Kc.to(cuda), cfg)
+    assert ps_g.T_cw.is_cuda and st_g.costs.is_cuda
+    assert torch.equal(st_g.accepted.cpu(), st_c.accepted)
+    np.testing.assert_allclose(st_g.costs.cpu().numpy(), st_c.costs.numpy(),
+                               rtol=1e-4)
+    np.testing.assert_allclose(ps_g.T_cw.cpu().numpy(), ps_c.T_cw.numpy(),
+                               atol=1e-4)
+    assert float(st_c.final_cost) < 0.5 * float(st_c.initial_cost)
 
 
 def test_wrappers_check_inputs_on_cuda(cuda):

@@ -2,9 +2,9 @@
 the reference, and its independence from jax.
 
 ``vslam_tpu_torch`` keeps its own copies of ``config.py``,
-``datasets/synthetic.py`` and ``utils/evaluate.py`` because importing
-``vslam_tpu`` loads jax, which a GPU host running the port need not have;
-these tests hold each copy equal to the original.
+``datasets/synthetic.py``, ``utils/evaluate.py`` and ``utils/metrics.py``
+because importing ``vslam_tpu`` loads jax, which a GPU host running the
+port need not have; these tests hold each copy equal to the original.
 """
 import dataclasses
 import os
@@ -21,10 +21,13 @@ import torch
 from vslam_tpu import config as jconfig
 from vslam_tpu.config import small_config as jsmall
 from vslam_tpu.datasets import synthetic as jsyn
+from vslam_tpu.pipeline import keyframes as jkf
 from vslam_tpu.pipeline import tracker as jtracker
 from vslam_tpu.utils import evaluate as jeval
 from vslam_tpu_torch import config, interop
 from vslam_tpu_torch.datasets import synthetic
+from vslam_tpu_torch.optimizer.ba import BAProblem
+from vslam_tpu_torch.pipeline.keyframes import KeyframeStore
 from vslam_tpu_torch.pipeline.tracker import TrackerState
 from vslam_tpu_torch.utils import evaluate
 
@@ -77,6 +80,58 @@ def test_evaluate_copy_equals_reference():
     assert a[0] == b[0]
     np.testing.assert_array_equal(a[2], b[2])
     assert evaluate.rpe(est, gt) == jeval.rpe(est, gt)
+
+
+def test_metrics_copy_equals_reference():
+    """The copy is the original file, byte for byte, and logs the same."""
+    a = (REPO / "vslam_tpu_torch/utils/metrics.py").read_text()
+    assert a == (REPO / "vslam_tpu/utils/metrics.py").read_text()
+    from vslam_tpu.utils.metrics import MetricsLogger as JLogger
+    from vslam_tpu_torch.utils.metrics import MetricsLogger
+    logs = []
+    for cls in (MetricsLogger, JLogger):
+        m = cls()
+        for i in range(3):
+            m.log(kind="frame", frame=i, num_inliers=10 * i, wall_s=0.5, t=0)
+        m.log(kind="ba", frame=2, t=0)
+        logs.append((m.records, m.summary()))
+    assert logs[0] == logs[1]
+
+
+def _assert_leaves_equal(want, got, path):
+    for f in dataclasses.fields(want):
+        w = getattr(want, f.name)
+        g = got[f.name]
+        assert g.dtype == w.dtype and g.shape == w.shape, (path, f.name)
+        np.testing.assert_array_equal(g, w, err_msg=f"{path}.{f.name}")
+
+
+def test_keyframe_store_and_ba_problem_round_trip():
+    """A reference KeyframeStore (two keyframes inserted, empty slots at
+    -1) and a reference BAProblem carry across and back unchanged."""
+    rng = np.random.RandomState(0)
+    n = 64
+    store = jkf.empty_store(6, n)
+    for i in range(2):
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, 3] = rng.randn(3)
+        store = jkf.insert_keyframe(
+            store, jnp.asarray(pose), jnp.int32(5 * i),
+            jnp.asarray(rng.rand(n, 2).astype(np.float32) * 100),
+            jnp.asarray(rng.randint(-1, 50, n).astype(np.int32)),
+            jnp.asarray(rng.rand(n) < 0.8))
+    from tests.test_ba import _make_problem
+    problem = _make_problem(n_cams=4, n_points=30)[0]
+    for ref, cls in ((store, KeyframeStore), (problem, BAProblem)):
+        ref = jax.tree_util.tree_map(np.asarray, ref)
+        port = interop.from_jax(ref, cls)
+        assert isinstance(port, cls)
+        _assert_leaves_equal(ref, interop.to_numpy(port), cls.__name__)
+    assert int(port.num_cams) == 4
+    st = interop.from_jax(jax.tree_util.tree_map(np.asarray, store),
+                          KeyframeStore)
+    assert st.ring_size == 6 and int(st.count) == 2
+    assert st.kf_order.tolist() == [0, 1, -1, -1, -1, -1]
 
 
 def test_state_round_trip_through_interop():

@@ -1,10 +1,11 @@
 """Functional persistent world map on torch tensors.
 
-Port of the tracking-step half of ``vslam_tpu/mapping/point_map.py``:
-``insert_points``, ``add_observations``, ``cull_stale`` and ``associate``.
-Scatters that the reference writes with ``mode="drop"`` (index C = drop)
-go through ``types.scatter_drop`` (a dump row, no boolean filter, no host
-sync). Every function returns a new MapState; inputs are not mutated.
+Port of ``vslam_tpu/mapping/point_map.py``: ``insert_points``,
+``add_observations``, ``cull_stale``, the maintenance trio ``evict_lru`` /
+``compact`` / ``remap_ids``, and ``associate``. Scatters that the
+reference writes with ``mode="drop"`` (index C = drop) go through
+``types.scatter_drop`` (a dump row, no boolean filter, no host sync). Every
+function returns a new MapState; inputs are not mutated.
 
 ``associate`` projects the map in plain torch (as ``associate_fused``
 keeps the projection outside the Pallas kernel) and hands the rest to
@@ -91,6 +92,59 @@ def cull_stale(m: MapState, current_frame, min_obs: int = 2,
     stale = (in_cursor & m.alive & (m.desc_count < min_obs)
              & (current_frame - m.last_seen > max_age))
     return m.replace(alive=m.alive & ~stale)
+
+
+def evict_lru(m: MapState, min_free: int) -> MapState:
+    """Mark the oldest-seen alive landmarks dead until at least ``min_free``
+    slots would be free after compaction. Exact count, ties broken by slot
+    index (a stable sort over the capacity axis)."""
+    C = m.capacity
+    slots = torch.arange(C, device=m.pt.device)
+    alive = m.alive & (slots < m.size)
+    n_evict = torch.clamp(alive.sum() - (C - min_free), min=0)
+    ls = torch.where(alive, m.last_seen, torch.iinfo(torch.int32).max)
+    order = torch.sort(ls, stable=True).indices               # oldest first
+    evict_idx = torch.where(slots < n_evict, order, C)
+    return m.replace(alive=scatter_drop(
+        m.alive, evict_idx, torch.zeros((), dtype=torch.bool,
+                                        device=m.pt.device)))
+
+
+def compact(m: MapState):
+    """Pack alive landmarks to the front, freeing dead slots. Returns
+    ``(compacted_map, remap)``, ``remap`` (C,) i32 old slot -> new slot, -1
+    for retired slots; every id holder goes through ``remap_ids``."""
+    C = m.capacity
+    K = m.obs_slots
+    dev = m.pt.device
+    keep = m.alive & (torch.arange(C, device=dev) < m.size)
+    new_pos = torch.cumsum(keep, 0, dtype=torch.int32) - 1
+    remap = torch.where(keep, new_pos, -1)
+    dst = torch.where(keep, new_pos, C).long()
+    # archive rows move with their point: flat row p*K+k -> new_pos*K+k;
+    # a retired point's rows all go to the archive's dump row C*K
+    ddst = torch.where(keep[:, None],
+                       dst[:, None] * K + torch.arange(K, device=dev)[None],
+                       C * K).reshape(-1)
+    moved = lambda a, idx=dst: scatter_drop(torch.zeros_like(a), idx, a)
+    m2 = MapState(
+        pt=moved(m.pt),
+        desc=moved(m.desc, ddst),
+        desc_count=moved(m.desc_count),
+        alive=moved(keep),
+        last_seen=moved(m.last_seen),
+        prov=moved(m.prov),
+        size=keep.sum().to(torch.int32),
+    )
+    return m2, remap
+
+
+def remap_ids(ids, remap):
+    """Apply a ``compact`` remap to map point ids (-1 passes through;
+    retired ids become -1)."""
+    C = remap.shape[0]
+    looked = remap[torch.clamp(ids, 0, C - 1).long()]
+    return torch.where(ids >= 0, looked, -1)
 
 
 class AssociationResult(NamedTuple):

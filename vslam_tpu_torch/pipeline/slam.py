@@ -1,0 +1,436 @@
+"""Full SLAM system: tracking + keyframing + map maintenance + window BA.
+
+Port of ``vslam_tpu/pipeline/slam.py`` without a mesh. The host loop moves
+images in and scalars out: each ordinary frame (neither a keyframe nor a
+BA frame) costs one device-to-host transfer, the packed pose and counters
+of the step; a BA attempt adds one more for its gate statistics before
+deciding whether to solve. The window-BA guards are host-side numpy on the
+solved window, as in the reference, and what they write back re-enters as
+float32 on the system's device. The reference's comments give the
+measurements behind every guard and constant; this file keeps the what.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import VSLAMConfig
+from ..core.types import PT_COLOR
+from ..mapping import point_map
+from ..optimizer import ba
+from ..utils.metrics import MetricsLogger
+from . import keyframes, tracker
+
+# TrackOutput scalars fetched with the pose in one transfer per frame
+_SCALARS = ("num_matches", "num_inliers", "num_associated",
+            "num_tracked_map", "num_tracked_prov", "num_pnp_inliers",
+            "num_refined", "num_promoted", "num_new_points",
+            "num_dropped_inserts", "map_size", "map_alive", "scale",
+            "success")
+
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    """Host numpy copy of a tensor on any device."""
+    return x.detach().cpu().numpy()
+
+
+def _centers(T_cw: np.ndarray) -> np.ndarray:
+    """Camera centers C = -R^T t of (W, 4, 4) world->camera transforms."""
+    return -np.einsum("wji,wj->wi", T_cw[:, :3, :3], T_cw[:, :3, 3])
+
+
+def _window_gate_stats(problem: ba.BAProblem, sel_prov):
+    """All pre-solve window gate quantities as four 0-d tensors (the
+    caller fetches them in one transfer): free-camera observations, free
+    cameras, deep-revisit observations, solid bridge observations."""
+    fixed = problem.cam_fixed
+    ofix = fixed[problem.obs_cam.long()]
+    ofree_cam = ~ofix
+    om = problem.obs_mask
+    pm = problem.point_mask
+    n_obs_free = (om & ofree_cam & pm[:, None]).sum()
+    n_free = (problem.cam_mask & ~fixed).sum()
+    nfix = (ofix & om).sum(dim=1)
+    nfree_o = (ofree_cam & om).sum(dim=1)
+    deep = pm & (nfix >= 2) & (nfree_o >= 1)
+    deep_obs = (om & deep[:, None]).sum()
+    bridge = ((ofix & om).any(dim=1) & (ofree_cam & om).any(dim=1)
+              & pm & ~sel_prov)
+    solid_obs = (ofix & om & bridge[:, None]).sum()
+    return n_obs_free, n_free, deep_obs, solid_obs
+
+
+def _map_maintenance(m, prev_map_id, obs_pid, min_free: int):
+    """Evict LRU landmarks until >= min_free slots are reclaimable, compact
+    the map, and remap every id holder (tracker + keyframe observations)."""
+    m = point_map.evict_lru(m, min_free)
+    m2, remap = point_map.compact(m)
+    return (m2, point_map.remap_ids(prev_map_id, remap),
+            point_map.remap_ids(obs_pid, remap))
+
+
+class SLAMSystem:
+    """Monocular SLAM over a frame stream, on one device."""
+
+    def __init__(self, cfg: VSLAMConfig, device, metrics_path: Optional[str]
+                 = None, seed: int = 0, enable_ba: bool = True):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.metrics = MetricsLogger(metrics_path)
+        self.enable_ba = enable_ba
+        self._seed = seed
+        self.state: Optional[tracker.TrackerState] = None
+        # the ring holds up to max_keyframes so global BA covers the run
+        self.kf_store = keyframes.empty_store(
+            ring_size=max(cfg.pipeline.max_keyframes, 2 * cfg.ba.window),
+            n_kp=cfg.frontend.max_keypoints, device=self.device)
+        self.trajectory: List[np.ndarray] = []
+        self.frame_idx = 0
+        self._kf_count = 0
+        self._K = tracker._K(cfg, self.device)
+        self.last_ba_stats = None
+        self.last_output = None     # the last step's TrackOutput (device)
+        # map maintenance: compact when the cursor passes the high-water
+        # mark, reclaiming at least min_free slots. The headroom covers a
+        # worst-case single-frame insert burst (the keypoint budget), and
+        # min_free clears the high-water mark with slack so one pass does
+        # not leave the map above it.
+        cap = cfg.map.capacity
+        headroom = max(cap // 10, min(cap // 2, cfg.frontend.max_keypoints))
+        self._maint_high_water = cap - headroom
+        self._maint_min_free = max(cap // 8, headroom + max(cap // 16, 1))
+        self.dropped_inserts_total = 0
+        self.maintenance_runs = 0
+
+    # ------------------------------------------------------------------
+    def process(self, img) -> Dict:
+        """Feed one grayscale frame (H, W) float32 in [0, 1] (numpy or a
+        tensor; a tensor already on the system's device is not copied)."""
+        t0 = time.perf_counter()
+        if self.state is None:
+            self.state = tracker.bootstrap(img, self.cfg, self.device,
+                                           seed=self._seed)
+            self.trajectory.append(np.eye(4, dtype=np.float32))
+            info = {"kind": "frame", "frame": 0, "bootstrap": True,
+                    "wall_s": time.perf_counter() - t0}
+            self.metrics.log(**info)
+            self.frame_idx = 1
+            return info
+
+        self.state, out = tracker.track_step(self.state, img, self.cfg)
+        self.last_output = out
+        # one bulk device->host transfer for all scalars + the pose (f64
+        # holds every f32 and every count exactly)
+        host = torch.cat([
+            out.pose.reshape(16).to(torch.float64),
+            torch.stack([getattr(out, k).reshape(()).to(torch.float64)
+                         for k in _SCALARS])]).cpu().numpy()
+        pose = host[:16].reshape(4, 4).astype(np.float32)
+        o = dict(zip(_SCALARS, host[16:].tolist()))
+        self.trajectory.append(pose)
+        counts = {k: int(o[k]) for k in _SCALARS[:-2]}
+        success = bool(o["success"])
+
+        inlier_ratio = counts["num_inliers"] / max(counts["num_matches"], 1.0)
+        is_kf = (
+            self.frame_idx % self.cfg.pipeline.keyframe_every == 0
+            or inlier_ratio < self.cfg.pipeline.keyframe_min_inlier_ratio
+        )
+        ran_ba = False
+        if is_kf and success:
+            self.kf_store = keyframes.insert_keyframe(
+                self.kf_store, self.state.pose,
+                torch.full((), self.frame_idx, dtype=torch.int32,
+                           device=self.device),
+                self.state.prev.uv, self.state.prev_map_id,
+                self.state.prev.mask)
+            self._kf_count += 1
+            se = self.cfg.ba.structure_every
+            if (self.enable_ba and se > 0 and self._kf_count >= 3
+                    and self._kf_count % se == 0):
+                self._refine_structure()
+            if (self.enable_ba and self._kf_count >= 3
+                    and self._kf_count % self.cfg.pipeline.local_ba_every
+                    == 0):
+                ran_ba = True
+                self._run_window_ba()
+
+        self.dropped_inserts_total += counts["num_dropped_inserts"]
+        ran_maintenance = False
+        if counts["map_size"] >= self._maint_high_water:
+            m2, pid2, obs2 = _map_maintenance(
+                self.state.map, self.state.prev_map_id,
+                self.kf_store.obs_pid, self._maint_min_free)
+            self.state = self.state.replace(map=m2, prev_map_id=pid2)
+            self.kf_store = self.kf_store.replace(
+                obs_pid=obs2, obs_mask=self.kf_store.obs_mask & (obs2 >= 0))
+            self.maintenance_runs += 1
+            ran_maintenance = True
+            self.metrics.log(kind="map_maintenance", frame=self.frame_idx,
+                             size_before=counts["map_size"],
+                             size_after=int(m2.size))
+
+        info = {"kind": "frame", "frame": self.frame_idx, **counts,
+                "scale": o["scale"], "success": success,
+                "keyframe": bool(is_kf), "ran_ba": ran_ba,
+                "ran_maintenance": ran_maintenance,
+                "wall_s": time.perf_counter() - t0}
+        self.metrics.log(**info)
+        self.frame_idx += 1
+        return info
+
+    def process_chunk(self, inputs, render_fn=None) -> Dict:
+        """Not ported yet: the chunked path (CUDA-graph capture of T
+        steps) is ROADMAP queue 1 item 10. Use ``process`` per frame."""
+        raise NotImplementedError(
+            "SLAMSystem.process_chunk: the chunked path is ROADMAP queue 1 "
+            "item 10; call process() per frame")
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _pin_window_gauge(wp, solved):
+        """Divide out the scale factor window BA applied to the free
+        cameras: free-camera centers and the landmarks free cameras observe
+        are rescaled about the newest anchored camera's center, unless
+        >= 30 anchored-camera observations of non-provisional bridging
+        landmarks show the scale direction is observed, or the factor is
+        within 2% of 1. Rotations are untouched. Returns (solved, s)."""
+        valid = _np(wp.win_valid)
+        fixed = _np(wp.problem.cam_fixed)
+        free = valid & ~fixed
+        if free.sum() == 0 or (valid & fixed).sum() == 0:
+            return solved, 1.0
+        obs_cam = _np(wp.problem.obs_cam)
+        obs_mask = _np(wp.problem.obs_mask)
+        pmask = _np(wp.problem.point_mask)
+        obs_fixed = fixed[obs_cam] & obs_mask
+        obs_free = (~fixed[obs_cam]) & obs_mask
+        bridging = obs_fixed.any(axis=1) & obs_free.any(axis=1) & pmask
+        solid = bridging & ~_np(wp.sel_prov)
+        if int(obs_fixed[solid].sum()) >= 30:
+            return solved, 1.0
+        T_cw_new = _np(solved.T_cw)
+        C_old = _centers(_np(wp.problem.T_cw))
+        C_new = _centers(T_cw_new)
+        # scale factor = median baseline ratio over consecutive valid pairs
+        # whose later camera is free
+        idx = np.where(valid)[0]
+        ratios = []
+        for a, b in zip(idx[:-1], idx[1:]):
+            if not free[b]:
+                continue
+            d_old = np.linalg.norm(C_old[b] - C_old[a])
+            d_new = np.linalg.norm(C_new[b] - C_new[a])
+            if d_old > 1e-6 and d_new > 1e-6:
+                ratios.append(d_new / d_old)
+        if not ratios:
+            return solved, 1.0
+        s = float(np.median(ratios))
+        if not np.isfinite(s) or not (0.2 < s < 5.0) or abs(s - 1.0) < 0.02:
+            return solved, s
+        # pivot at the newest anchored valid camera (BA cannot move it)
+        pivot = C_new[np.where(valid & fixed)[0][-1]]
+        C_fix = pivot[None] + (C_new - pivot[None]) / s
+        t_fix = -np.einsum("wij,wj->wi", T_cw_new[:, :3, :3], C_fix)
+        T_out = T_cw_new.copy()
+        T_out[free, :3, 3] = t_fix[free]
+        # rescale only landmarks observed by free cameras: anchored-only
+        # ones were solved against unmoved poses
+        X = _np(solved.points)
+        pt_free = obs_free.any(axis=1) & pmask
+        X_fix = np.where(pt_free[:, None],
+                         pivot[None] + (X - pivot[None]) / s, X)
+        back = lambda a, like: torch.as_tensor(
+            np.asarray(a, np.float32)).to(like.device)
+        return solved.replace(T_cw=back(T_out, solved.T_cw),
+                              points=back(X_fix, solved.points)), s
+
+    @staticmethod
+    def _window_starved(wp) -> tuple:
+        """Observation-starvation guard: fewer than 8 observations made by
+        free cameras per free camera leaves the window (near-)unconstrained.
+        Returns (starved, n_obs_free, n_free)."""
+        fixed = _np(wp.problem.cam_fixed)
+        obs_free_cam = ~fixed[_np(wp.problem.obs_cam)]
+        n_obs = int((_np(wp.problem.obs_mask) & obs_free_cam
+                     & _np(wp.problem.point_mask)[:, None]).sum())
+        n_free = int((_np(wp.win_valid) & ~fixed).sum())
+        return n_obs < 8 * max(n_free, 1), n_obs, n_free
+
+    @staticmethod
+    def _ba_event_accepted(wp, solved) -> tuple:
+        """Trust region on the whole (re-gauged) BA outcome: accept when the
+        largest camera-center move lies between 8% (the correction
+        deadband) and 50% of the median inter-keyframe baseline. Returns
+        (accepted, max_move, median_baseline)."""
+        C_old = _centers(_np(wp.problem.T_cw))
+        C_new = _centers(_np(solved.T_cw))
+        valid = _np(wp.win_valid)
+        move = np.linalg.norm(C_new - C_old, axis=1)[valid]
+        steps = np.linalg.norm(np.diff(C_old[valid], axis=0), axis=1)
+        baseline = float(np.median(steps)) if len(steps) else 1.0
+        max_move = float(move.max()) if len(move) else 0.0
+        return (max(0.08 * baseline, 1e-3) <= max_move
+                <= max(0.5 * baseline, 1e-3)), max_move, baseline
+
+    # ------------------------------------------------------------------
+    def _refine_structure(self):
+        """Structure-only window refinement (``BAConfig.structure_every``):
+        the sliding-window problem with every camera fixed, so the solve is
+        batched multi-view triangulation; provisional landmarks that earn
+        the ray span are written back and promoted. Poses are untouched."""
+        cfg = self.cfg
+        ba_cfg = dataclasses.replace(cfg.ba, iterations=6)
+        wp = keyframes.build_window_problem(
+            self.kf_store, self.state.map, cfg.replace(ba=ba_cfg),
+            free_tail=0, prov_min_obs=2)
+        solved, stats = ba.solve_robust(wp.problem, self._K, ba_cfg,
+                                        reject_px=3.0, rounds=2)
+        new_map, n_promoted = keyframes.apply_structure_result(
+            self.state.map, wp, solved,
+            tracker._rad(0.5 * cfg.triangulation.promote_parallax_deg))
+        self.state = self.state.replace(map=new_map)
+        init, fin, n = torch.stack([
+            stats.initial_cost.double(), stats.final_cost.double(),
+            n_promoted.double()]).tolist()
+        self.metrics.log(kind="structure_refine", frame=self.frame_idx,
+                         initial_cost=init, final_cost=fin,
+                         promoted=int(n))
+
+    # ------------------------------------------------------------------
+    def _run_window_ba(self):
+        # prov_min_obs=99: provisional landmarks stay out of the
+        # pose-moving solve (estimating them is _refine_structure's job)
+        wp = keyframes.build_window_problem(
+            self.kf_store, self.state.map, self.cfg,
+            free_tail=self.cfg.ba.free_cams, prov_min_obs=99)
+        # all pre-solve gate statistics in one transfer
+        n_obs, n_free, deep_obs, solid_obs = torch.stack(
+            _window_gate_stats(wp.problem, wp.sel_prov)).tolist()
+        # starvation guard (see _window_starved)
+        if n_obs < 8 * max(n_free, 1):
+            self.metrics.log(kind="ba", frame=self.frame_idx,
+                             skipped="starved", n_obs=n_obs, n_free=n_free,
+                             ba_result_accepted=False)
+            return
+        # exploration gate: a pose-moving solve needs deep revisit evidence
+        if deep_obs < 120:
+            self.metrics.log(kind="ba", frame=self.frame_idx,
+                             skipped="shallow", deep_obs=deep_obs,
+                             ba_result_accepted=False)
+            return
+        solved, stats = ba.solve_robust(wp.problem, self._K, self.cfg.ba,
+                                        reject_px=5.0, rounds=2)
+        solved, gauge_s = self._pin_window_gauge(wp, solved)
+        ba_accepted, max_move, baseline = self._ba_event_accepted(wp, solved)
+        s_corr = 1.0
+        if ba_accepted:
+            self.kf_store, new_map, T_corr = keyframes.apply_window_result(
+                self.kf_store, self.state.map, wp, solved)
+            # re-gauge the motion model from the newest keyframe gap, only
+            # where the window's scale direction is observed
+            idx = np.where(_np(wp.win_valid))[0]
+            if (self.cfg.ba.rescale_motion_model and solid_obs >= 30
+                    and len(idx) >= 2):
+                C_old = _centers(_np(wp.problem.T_cw))
+                C_new = _centers(_np(solved.T_cw))
+                a, b = idx[-2], idx[-1]
+                g_old = float(np.linalg.norm(C_old[b] - C_old[a]))
+                g_new = float(np.linalg.norm(C_new[b] - C_new[a]))
+                if g_old > 1e-6 and g_new > 1e-6:
+                    s_corr = float(np.clip(g_new / g_old, 0.5, 2.0))
+            vel = self.state.vel.clone()
+            vel[:3, 3] *= s_corr
+            self.state = self.state.replace(
+                map=new_map, pose=T_corr @ self.state.pose, vel=vel,
+                scale=(self.state.scale.double() * s_corr).float())
+        self.last_ba_stats = stats
+        init, fin, n_acc, d_pts, d_obs, evicted = torch.stack([
+            stats.initial_cost.double(), stats.final_cost.double(),
+            stats.accepted.sum().double(), wp.n_dropped_points.double(),
+            wp.n_dropped_obs.double(),
+            wp.n_evicted_keyframes.double()]).tolist()
+        self.metrics.log(
+            kind="ba", frame=self.frame_idx, initial_cost=init,
+            final_cost=fin, accepted=int(n_acc),
+            ba_result_accepted=ba_accepted, max_cam_move=max_move,
+            median_baseline=baseline, gauge_s=gauge_s, scale_corr=s_corr,
+            dropped_points=int(d_pts), dropped_obs=int(d_obs),
+            evicted_keyframes=int(evicted))
+
+    # ------------------------------------------------------------------
+    def run_global_ba(self, iterations: Optional[int] = None,
+                      reject_px: float = 2.0, huber_delta: float = 1.5):
+        """Global BA over every retained keyframe, tighter than window BA
+        (reject 2 px, Huber 1.5). The problem is sized on the host from the
+        keyframe store's observation graph (rounded up to buckets), so a
+        full run optimizes with zero truncation; the Schur assembly is
+        one-hot up to ``onehot_max_cams`` cameras and scatter beyond."""
+        cfg = self.cfg
+        pid = _np(self.kf_store.obs_pid)
+        msk = _np(self.kf_store.obs_mask) \
+            & (_np(self.kf_store.kf_order) >= 0)[:, None]
+        live = pid[msk & (pid >= 0)]
+        if live.size:
+            n_unique = int(np.unique(live).size)
+            max_obs = int(np.bincount(live).max())
+        else:
+            n_unique, max_obs = 1, 2
+        bucket = lambda n, q: int(-(-max(n, 1) // q) * q)
+        P = min(bucket(n_unique, 1024), int(self.state.map.capacity))
+        Kslots = bucket(max_obs, 8)
+        ba_cfg = dataclasses.replace(
+            cfg.ba, iterations=iterations or cfg.ba.iterations,
+            huber_delta=huber_delta, max_obs_per_point=Kslots)
+        wp = keyframes.build_window_problem(
+            self.kf_store, self.state.map, cfg.replace(ba=ba_cfg),
+            window=self.kf_store.ring_size, max_points=P)
+        solved, stats = ba.solve_robust(wp.problem, self._K, ba_cfg,
+                                        reject_px=reject_px, rounds=3)
+        self.kf_store, new_map, T_corr = keyframes.apply_window_result(
+            self.kf_store, self.state.map, wp, solved)
+        self.state = self.state.replace(map=new_map,
+                                        pose=T_corr @ self.state.pose)
+        self.last_ba_stats = stats
+        d_pts, d_obs, evicted = torch.stack([
+            wp.n_dropped_points, wp.n_dropped_obs,
+            wp.n_evicted_keyframes.to(torch.int32)]).tolist()
+        self.last_global_ba_coverage = {
+            "max_points": P, "obs_slots": Kslots,
+            "unique_landmarks": n_unique, "dropped_points": d_pts,
+            "dropped_obs": d_obs, "evicted_keyframes": evicted}
+        self.metrics.log(kind="global_ba",
+                         initial_cost=float(stats.initial_cost),
+                         final_cost=float(stats.final_cost),
+                         **self.last_global_ba_coverage)
+        return stats
+
+    # ------------------------------------------------------------------
+    def poses(self) -> np.ndarray:
+        """(F, 4, 4) per-frame T_wc trajectory (odometry output)."""
+        return np.stack(self.trajectory)
+
+    def keyframe_poses(self) -> np.ndarray:
+        """(Nkf, 4, 4) optimized keyframe poses, ordered by keyframe
+        number."""
+        order = _np(self.kf_store.kf_order)
+        sel = order >= 0
+        idx = np.argsort(order[sel])
+        return _np(self.kf_store.poses)[sel][idx]
+
+    def snapshot(self) -> Dict[str, np.ndarray]:
+        """Immutable map/trajectory snapshot (host numpy) for
+        visualization/export."""
+        m = self.state.map
+        size = int(m.size)
+        alive = _np(m.alive)[:size]
+        return {
+            "points": _np(m.xyz)[:size][alive],
+            "colors": _np(m.pt[:, PT_COLOR])[:size][alive],
+            "poses": self.poses(),
+            "keyframe_poses": self.keyframe_poses(),
+        }
