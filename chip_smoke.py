@@ -7,10 +7,13 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
   1. the card: torch's device name, and nvidia-smi's name and power limit;
   2. build the CUDA kernels from ``vslam_tpu_torch/csrc`` (nvcc, first use);
   3. kernel K1 (Hamming matrix) vs its plain torch version: random
-     descriptors at 3072 x 3072 and 100 x 300 (ragged edges), exact;
+     descriptors at 3072 x 3072 and at ragged shapes, exact; its time with
+     the L2 cache warm and flushed, its bound, and torch.cdist(p=0) on the
+     bit planes as the library yardstick (checked equal);
   4. kernel K2 (search-by-projection) vs its plain version: capacity
-     131072 holding 51200 corridor distractors plus planted near-duplicates
-     (hits in both tiers), 3072 keypoints, exact;
+     131072 holding 51200, then 120000, corridor distractors plus planted
+     near-duplicates (hits in both tiers), 3072 keypoints, exact; its time
+     and bound at each size;
   5. the tracking step on CUDA vs on the CPU (plain versions), small
      config, the same injected RANSAC samples, per-frame tolerances;
   6. the tracking step: bootstrap + 11 ``track_step`` of the default config
@@ -35,10 +38,11 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
  10. the bounded-map scenario of tests/test_map_lifecycle.py on CUDA
      (capacity 512, 24 frames): maintenance runs, no insert drops.
 
-Each phase prints its seconds. The line before the last is one JSON object
-per kernel (route, source, the TPU kernel it replaces, launches on the
-main path of phase 8 and on the tracking step of phase 6, max |error| vs
-the plain version, kernel and plain times); then the nvidia-smi line; the
+Each phase prints its seconds. The line before the last but one is one
+JSON object per kernel (route, source, the TPU kernel it replaces, launches
+on the main path of phase 8 and on the tracking step of phase 6, max |error|
+vs the plain version, kernel, plain and library times, and the bound with
+what bounds it); then the nvidia-smi line; the
 last line is ``{"ok": true, "device": {...}}``. No GPU: exits 2 and prints
 no result.
 """
@@ -61,6 +65,19 @@ def _smi() -> str:
         f"nvidia-smi failed: {r.stderr.strip()}"
 
 
+def _count_sass(lib, opcode: str):
+    """How often ``opcode`` appears in the SASS of a built library
+    (cuobjdump from the CUDA toolkit); None where cuobjdump is missing."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        r = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                           text=True, timeout=120)
+    except OSError:
+        return None
+    return r.stdout.count(opcode) if r.returncode == 0 else None
+
+
 def _time_ms(torch, fn, reps: int = 20) -> float:
     """Mean device time of fn() over reps launches (CUDA events)."""
     fn()
@@ -75,6 +92,43 @@ def _time_ms(torch, fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _time_each_ms(torch, fn, reps: int = 20, before=None) -> float:
+    """Mean device time of single calls of fn(), each between two CUDA
+    events. Before each call runs ``before()`` (if given), then a ~0.2 ms
+    spin that touches no memory keeps the card busy while the host
+    enqueues, so the wrapper's host overhead never enters the timed
+    window."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        if before is not None:
+            before()
+        torch.cuda._sleep(400_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return float(np.mean([a.elapsed_time(b) for a, b in pairs]))
+
+
+# The card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W): the
+# bounds below are the larger of bytes / HBM rate and operations / peak.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
+
+
+def _bound(n_bytes, n_ops, ops_per_s):
+    """(bound_ms, what bounds it)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def _flip_bits(rng, words_i32, n_bits):
     """Flip n distinct random bits of one (8,) int32 descriptor."""
     bits = np.unpackbits(words_i32.view(np.uint8), bitorder="little")
@@ -84,12 +138,18 @@ def _flip_bits(rng, words_i32, n_bits):
 
 
 def check_k1(torch, dev, failures):
+    """Phase 3: K1 exact against its plain version at the main path's 3072
+    x 3072 and at ragged shapes (edges of the 16 x 8 mma tile, of the 16 x
+    128 block tile and of the 16-byte store); its time with the L2 cache
+    warm (repeated launches) and flushed, its bound, and torch.cdist(p=0)
+    on the {0,1} bit planes as the library yardstick."""
+    from vslam_tpu_torch.frontend.descriptors import unpack_bits
     from vslam_tpu_torch.ops import hamming
 
     rng = np.random.RandomState(0)
-    err, shapes = 0, ((3072, 3072), (100, 300))
-    big = None
-    for n1, n2 in shapes:
+    err, big = 0, None
+    for n1, n2 in ((3072, 3072), (100, 300), (1, 129), (17, 9), (3071, 3073),
+                   (16, 3072)):
         d1 = torch.from_numpy(rng.randint(-2**31, 2**31, (n1, 8),
                                           dtype=np.int64).astype(np.int32))
         d2 = torch.from_numpy(rng.randint(-2**31, 2**31, (n2, 8),
@@ -105,25 +165,60 @@ def check_k1(torch, dev, failures):
             failures.append(f"K1 disagrees at {n1}x{n2}")
         if big is None:
             big = (d1, d2)
-    ms = _time_ms(torch, lambda: hamming.hamming_cuda(*big))
+    n1, n2 = (t.shape[0] for t in big)
+    kernel = lambda: hamming.hamming_cuda(*big)
+    ms = _time_each_ms(torch, kernel)
+    # reading 256 MB leaves the L2 holding other, clean lines: the output's
+    # lines miss, and no write-back of someone else's data is charged to K1
+    scrub = torch.ones(256 * 2**20 // 4, dtype=torch.int32, device=dev)
+    ms_flushed = _time_each_ms(torch, kernel, before=scrub.sum)
+    del scrub
     plain_ms = _time_ms(torch, lambda: hamming.hamming_plain(*big))
-    print(f"K1 3072x3072: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    out_bytes, in_bytes = 4 * n1 * n2, 32 * (n1 + n2)
+    bound_ms, bound_by = _bound(out_bytes + in_bytes, 2 * 256 * n1 * n2,
+                                INT8_OPS_PER_S)
+    l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size", 0)
+    print(f"K1 {n1}x{n2}: kernel {ms:.4f} ms with the L2 warm, "
+          f"{ms_flushed:.4f} ms with it flushed (256 MB read before each "
+          f"launch), plain {plain_ms:.4f} ms")
+    print(f"K1 bound {bound_ms:.4f} ms ({bound_by}: "
+          f"{(out_bytes + in_bytes) / 1e6:.2f} MB at 3.35 TB/s; the bit "
+          f"product {2 * 256 * n1 * n2 / 1e9:.2f} G ops at 1979 TOP/s takes "
+          f"{2 * 256 * n1 * n2 / INT8_OPS_PER_S * 1e3:.4f} ms); share "
+          f"{bound_ms / ms:.2f} warm, {bound_ms / ms_flushed:.2f} flushed")
+    print(f"K1 output {out_bytes / 1e6:.2f} MB, L2 {l2 / 1e6:.2f} MB: "
+          + ("repeated launches beat the HBM bound, so they find the output "
+             "resident in L2" if ms < bound_ms else
+             "repeated launches do not beat the HBM bound (the output is "
+             "not served from L2)"))
+    a = unpack_bits(big[0]).to(torch.float32)
+    b = unpack_bits(big[1]).to(torch.float32)
+    lib = torch.cdist(a, b, p=0)
+    same = bool(torch.equal(lib.to(torch.int32), hamming.hamming_cuda(*big)))
+    library_ms = _time_each_ms(torch, lambda: torch.cdist(a, b, p=0), reps=5)
+    print(f"K1 library: torch.cdist(p=0) on (3072, 256) f32 bit planes "
+          f"{library_ms:.4f} ms (unpacking outside the window), equal to "
+          f"K1: {same}")
+    if not same:
+        failures.append("torch.cdist(p=0) disagrees with K1")
+    return dict(max_abs_err=err, ms=ms, ms_l2_flushed=ms_flushed,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
 
 
-def k2_inputs(torch, dev, cfg):
+def k2_inputs(torch, dev, cfg, n_map=51200, seed=1):
     """Kernel K2's inputs at the main path's shapes: capacity 131072 with
-    51200 random-descriptor distractors along the corridor (as bench.py
+    ``n_map`` random-descriptor distractors along the corridor (as bench.py
     builds them) and 600 points with planted near-duplicate keypoints."""
     from vslam_tpu_torch.core import camera as cam
     from vslam_tpu_torch.core.types import empty_map
     from vslam_tpu_torch.mapping import point_map
 
-    rng = np.random.RandomState(1)
+    rng = np.random.RandomState(seed)
     C, K = cfg.map.capacity, cfg.map.obs_per_point
     N = cfg.frontend.max_keypoints
     W, H = cfg.camera.width, cfg.camera.height
-    n_map, n_plant, frame = 51200, 600, 20
+    n_plant, frame = 600, 20
     xyz = np.stack([rng.uniform(-50, 50, n_map), rng.uniform(-10, 10, n_map),
                     rng.uniform(2.0, 180.0, n_map)], 1).astype(np.float32)
     desc = rng.randint(-2**31, 2**31, (n_map, 8), dtype=np.int64)
@@ -167,35 +262,77 @@ def k2_inputs(torch, dev, cfg):
                 kp_uv=t(kp_uv), kp_free=t(kp_free), kp_desc=t(kp_desc)), m
 
 
+# map sizes K2 is held and timed at: phase 4's map (bench.py's 51k-point
+# cell) and the largest map bench.py reports (120k)
+K2_SIZES = (51200, 120000)
+
+
 def check_k2(torch, dev, cfg, failures):
-    """Returns K2's numbers and the map it searched (phase 7 reuses it)."""
+    """Phase 4: K2 exact against its plain version on two maps (sizes
+    K2_SIZES, capacity 131072, 3072 keypoints), with hits in both tiers;
+    its time and bound at each size. Returns K2's numbers (``ms`` at the
+    first size) and the first map (phase 7 reuses it)."""
     from vslam_tpu_torch.mapping import point_map
     from vslam_tpu_torch.ops import associate as k2
 
-    args, m = k2_inputs(torch, dev, cfg)
     kw = dict(point_map.gates(cfg.matching), block=cfg.map.block_size)
-    got = k2.associate_cuda(**args, **kw)
-    want = k2.associate_plain(**args, **kw)
-    torch.cuda.synchronize()
-    pid_g, d_g = k2.decode(got)
-    pid_w, d_w = k2.decode(want)
-    same = bool(torch.equal(pid_g, pid_w) and torch.equal(d_g, d_w))
-    err = int((got.long() - want.long()).abs().max())
-    hit = pid_w >= 0
-    strict = int((hit & (d_w < cfg.matching.hamming_max)).sum())
-    band = int((hit & (d_w >= cfg.matching.hamming_max)).sum())
-    print(f"K2 C={cfg.map.capacity} size={int(args['size'])} "
-          f"N={args['kp_uv'].shape[0]}: ids+distances equal={same}, "
-          f"hits strict={strict} reacq-band={band}")
-    if not same:
-        failures.append("K2 disagrees with its plain version")
-    if strict == 0 or band == 0:
-        failures.append("K2 check did not exercise both tiers")
-    ms = _time_ms(torch, lambda: k2.associate_cuda(**args, **kw))
-    plain_ms = _time_ms(torch, lambda: k2.associate_plain(**args, **kw),
-                        reps=5)
-    print(f"K2: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms), m
+    res, first = {}, None
+    for seed, n_map in enumerate(K2_SIZES, start=1):
+        args, m = k2_inputs(torch, dev, cfg, n_map, seed)
+        got = k2.associate_cuda(**args, **kw)
+        want = k2.associate_plain(**args, **kw)
+        torch.cuda.synchronize()
+        pid_g, d_g = k2.decode(got)
+        pid_w, d_w = k2.decode(want)
+        same = bool(torch.equal(pid_g, pid_w) and torch.equal(d_g, d_w))
+        err = int((got.long() - want.long()).abs().max())
+        hit = pid_w >= 0
+        strict = int((hit & (d_w < cfg.matching.hamming_max)).sum())
+        band = int((hit & (d_w >= cfg.matching.hamming_max)).sum())
+        N, C = args["kp_uv"].shape[0], cfg.map.capacity
+        size = int(args["size"])
+        print(f"K2 C={C} size={size} N={N}: ids+distances equal={same}, "
+              f"hits strict={strict} reacq-band={band}")
+        if not same:
+            failures.append(f"K2 disagrees with its plain version at size "
+                            f"{size}")
+        if strict == 0 or band == 0:
+            failures.append(f"K2 check at size {size} did not exercise both "
+                            "tiers")
+        ms = _time_each_ms(torch, lambda: k2.associate_cuda(**args, **kw))
+        # the same call with both pixel gates closed: the sweep alone
+        shut = dict(kw, r_sq=-1.0, reacq_r_sq=-1.0)
+        sweep_ms = _time_each_ms(torch,
+                                 lambda: k2.associate_cuda(**args, **shut))
+        plain_ms = _time_ms(torch, lambda: k2.associate_plain(**args, **kw),
+                            reps=5)
+        K = cfg.map.obs_per_point
+        n_bytes = size * (8 + 1 + 4 + 4 + 32 * K) + N * (8 + 1 + 32 + 4)
+        bound_ms, bound_by = _bound(n_bytes, 5 * N * size, F32_OPS_PER_S)
+        print(f"K2 size {size}: kernel {ms:.4f} ms (with the wrapper's "
+              f"12 KB output fill; {sweep_ms:.4f} ms with the pixel gates "
+              f"closed, the sweep alone), plain {plain_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms ({bound_by}: 5 x {N} x {size} f32 ops at "
+              f"67 TFLOP/s; {n_bytes / 1e6:.2f} MB at 3.35 TB/s takes "
+              f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); share "
+              f"{bound_ms / ms:.2f}")
+        res[size] = dict(max_abs_err=err, ms=ms, sweep_ms=sweep_ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by)
+        if first is None:
+            first = m
+        del args, m
+    print("K2 library: none (no single PyTorch call computes "
+          "search-by-projection)")
+    main = res[K2_SIZES[0]]
+    by_size = lambda key: {str(k): r[key] for k, r in res.items()}
+    return dict(max_abs_err=max(r["max_abs_err"] for r in res.values()),
+                ms=main["ms"], plain_ms=main["plain_ms"],
+                bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                library_ms=None, ms_by_size=by_size("ms"),
+                sweep_ms_by_size=by_size("sweep_ms"),
+                bound_ms_by_size=by_size("bound_ms"),
+                plain_ms_by_size=by_size("plain_ms")), first
 
 
 def _render(cfg, n_frames, scene_kw, step, seed, **traj_kw):
@@ -655,8 +792,14 @@ def main() -> int:
     kern = _build.load()
     print(f"built {kern.path.name} in {kern.seconds:.1f} s")
     for line in kern.log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "error")):
             print("  ptxas:", line.strip())
+    n_bmma = _count_sass(kern.path, "BMMA")
+    print(f"SASS of {kern.path.name}: {n_bmma} BMMA (b1 tensor-core mma) "
+          "instructions")
+    if n_bmma == 0:
+        failures.append("K1 has no b1 tensor-core mma in its SASS")
 
     clock = [time.perf_counter()]
 

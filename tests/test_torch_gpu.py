@@ -17,6 +17,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch_scenes as scenes
 
 from vslam_tpu_torch.config import BAConfig, small_config
 from vslam_tpu_torch.core import camera as cam
@@ -45,10 +46,22 @@ def _desc(rng, n):
 
 
 @pytest.mark.parametrize("n1,n2", [(3072, 3072), (100, 300), (1, 129),
-                                   (257, 1)])
+                                   (257, 1), (17, 9), (3071, 3073),
+                                   (16, 3072)])
 def test_k1_kernel_matches_plain(cuda, n1, n2):
     rng = np.random.RandomState(n1 + n2)
     d1, d2 = _desc(rng, n1).to(cuda), _desc(rng, n2).to(cuda)
+    before = k1.launches
+    got = k1.hamming_cuda(d1, d2)
+    assert k1.launches == before + 1
+    assert torch.equal(got, k1.hamming_plain(d1, d2))
+
+
+@pytest.mark.parametrize("name", scenes.K1_SCENES)
+def test_k1_kernel_on_adversarial_descriptors(cuda, name):
+    """All-zero against all-ones (d = 0 and 256); one-hot e_i against e_j
+    (d = 0 or 2: A and B must map k the same way in the b1 fragments)."""
+    d1, d2 = (torch.from_numpy(d).to(cuda) for d in scenes.k1_scene(name))
     before = k1.launches
     got = k1.hamming_cuda(d1, d2)
     assert k1.launches == before + 1
@@ -111,16 +124,41 @@ def test_k2_kernel_matches_plain(cuda, seed, reacq):
                                .any())
 
 
+@pytest.mark.parametrize("name", scenes.K2_SCENES)
+def test_k2_kernel_on_adversarial_scenes(cuda, name):
+    """A dense cluster (the per-warp candidate queue fills and drains many
+    times within one chunk), ties across ids and archive slots (the
+    smallest id wins), points on the r^2 and reacq r^2 boundaries with
+    size and N multiples of neither the chunk nor the keypoint tile."""
+    g = CFG.matching
+    sc = scenes.k2_scene(name, K=CFG.map.obs_per_point, r=g.search_radius,
+                         rq=g.reacq_radius, hmax=g.hamming_max,
+                         rq_hmax=g.reacq_hamming_max,
+                         max_age=g.reacq_max_age)
+    muv, vis = scenes.k2_pixels(sc)
+    t = lambda a, dt=None: torch.as_tensor(np.array(a), dtype=dt).to(cuda)
+    args = (t(muv), t(vis), t(sc["last_seen"]), t(sc["dcount"]),
+            t(sc["desc"]), t(sc["size"], torch.int32),
+            t(sc["frame"], torch.int32), t(sc["kp_uv"]), t(sc["kp_free"]),
+            t(sc["kp_desc"]))
+    kw = point_map.gates(g)
+    before = k2.launches
+    got = k2.associate_cuda(*args, **kw)
+    assert k2.launches == before + 1
+    assert torch.equal(got, k2.associate_plain(*args, **kw))
+    pid, dist = k2.decode(got)
+    scenes.check_expect(sc, pid.cpu().numpy(), dist.cpu().numpy())
+
+
 def test_k2_skips_chunks_past_the_cursor(cuda):
-    """Chunks that start past the insert cursor exit without reading the
-    map: with ``size`` forced below points that are alive (a state the map
-    functions never produce), those points are never associated."""
+    """Rows at or past the insert cursor are never read: with ``size``
+    forced below points that are alive (a state the map functions never
+    produce), those points are never associated."""
     args = list(_scene(cuda, 2, capacity=8192))
-    args[5] = torch.tensor(2048, dtype=torch.int32, device=cuda)
+    args[5] = torch.tensor(2000, dtype=torch.int32, device=cuda)
     kw = point_map.gates(CFG.matching)
     pid, _ = k2.decode(k2.associate_cuda(*args, **kw))
-    # the kernel's chunks are 2048 points: only chunk 0 starts below size
-    assert int(pid.max()) < 2048
+    assert int(pid.max()) < 2000
     assert int((pid >= 0).sum()) > 0
 
 

@@ -13,9 +13,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_scenes as scenes
 
 from vslam_tpu.config import small_config
 from vslam_tpu.core import camera as jcam
+from vslam_tpu.core.types import PT_COLS
 from vslam_tpu.core.types import empty_map as jempty_map
 from vslam_tpu.mapping import point_map as jpm
 from vslam_tpu.matching import hamming as jhamming
@@ -71,6 +73,22 @@ def test_k1_plain_matches_pallas_kernel():
     want = np.asarray(pallas_hamming.hamming(jnp.asarray(d1),
                                              jnp.asarray(d2)))
     np.testing.assert_array_equal(k1.hamming_plain(_t(d1), _t(d2)).numpy(),
+                                  want)
+
+
+@pytest.mark.parametrize("name", scenes.K1_SCENES)
+def test_k1_plain_on_adversarial_descriptors(name):
+    """All-zero against all-ones rows (d = 0 and 256) and one-hot e_i
+    against e_j (d = 0 or 2): the plain version against the popcount oracle
+    and the Pallas kernel (interpreted, padded to its 256 tiles)."""
+    d1, d2 = scenes.k1_scene(name)
+    j1, j2 = jnp.asarray(d1.view(np.uint32)), jnp.asarray(d2.view(np.uint32))
+    want = np.asarray(jhamming.hamming_popcount(j1, j2))
+    assert set(np.unique(want)) == ({0, 256} if name == "zeros_ones"
+                                    else {0, 2})
+    np.testing.assert_array_equal(k1.hamming_plain(_t(d1), _t(d2)).numpy(),
+                                  want)
+    np.testing.assert_array_equal(np.asarray(pallas_hamming.hamming(j1, j2)),
                                   want)
 
 
@@ -182,6 +200,51 @@ def test_k2_without_reacq_tier():
     np.testing.assert_array_equal(got.point_id.numpy(),
                                   np.asarray(want.point_id))
     assert (np.asarray(want.point_id) >= 0).sum() > 5
+
+
+def _scene_map(sc):
+    """A K2 scene's map as the reference's MapState: point (u, v, 1)."""
+    C = len(sc["alive"])
+    pt = np.zeros((C, PT_COLS), np.float32)
+    pt[:, :2] = sc["pix"]
+    pt[:, 2] = 1.0
+    return jempty_map(C, sc["desc"].shape[0] // C).replace(
+        pt=jnp.asarray(pt), desc=jnp.asarray(sc["desc"].view(np.uint32)),
+        desc_count=jnp.asarray(sc["dcount"]), alive=jnp.asarray(sc["alive"]),
+        last_seen=jnp.asarray(sc["last_seen"]),
+        size=jnp.asarray(sc["size"], jnp.int32))
+
+
+@pytest.mark.parametrize("name", scenes.K2_SCENES)
+def test_k2_plain_on_adversarial_scenes(name):
+    """associate (K2's plain version on the CPU) against the reference's
+    XLA path on a dense cluster, ties across ids and slots, and points on
+    the gates' boundaries, seen through P = [I | 0]: ids and distances
+    bit-exact, and the outcomes each scene was built to force."""
+    g = CFG.matching
+    sc = scenes.k2_scene(name, K=CFG.map.obs_per_point, r=g.search_radius,
+                         rq=g.reacq_radius, hmax=g.hamming_max,
+                         rq_hmax=g.reacq_hamming_max,
+                         max_age=g.reacq_max_age)
+    m = _scene_map(sc)
+    mcfg = dataclasses.replace(CFG.map, capacity=m.capacity)
+    P = np.eye(3, 4, dtype=np.float32)
+    want = jpm.associate(m, jnp.asarray(P), jnp.asarray(sc["kp_uv"]),
+                         jnp.asarray(sc["kp_desc"].view(np.uint32)),
+                         jnp.asarray(sc["kp_free"]), mcfg, g, scenes.W,
+                         scenes.H,
+                         frame_idx=jnp.asarray(sc["frame"], jnp.int32))
+    tm = interop.from_jax(jax.tree_util.tree_map(np.asarray, m), MapState)
+    got = point_map.associate(
+        tm, _t(P), _t(sc["kp_uv"]), _t(sc["kp_desc"]), _t(sc["kp_free"]),
+        mcfg, g, scenes.W, scenes.H,
+        frame_idx=torch.tensor(sc["frame"], dtype=torch.int32))
+    pid, dist = np.asarray(want.point_id), np.asarray(want.distance)
+    np.testing.assert_array_equal(got.point_id.numpy(), pid)
+    hit = pid >= 0
+    np.testing.assert_array_equal(got.distance.numpy()[hit], dist[hit])
+    scenes.check_expect(sc, pid, dist)
+    assert hit.sum() >= 40
 
 
 def test_map_updates_match_reference():

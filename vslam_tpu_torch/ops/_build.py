@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels on first use.
 
-``csrc/*.cu`` compile with nvcc into one shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds), named by the hash
-of the sources and flags under ``build/kernels/`` at the repo root, which
-``.gitignore`` lists. The wrappers (``ops/hamming.py``, ``ops/associate.py``)
-call the C entries through ``ctypes`` on PyTorch's current stream; each
-entry returns ``cudaGetLastError()``.
+``csrc/*.cu`` compile with nvcc, one process per source started together,
+and link into one shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds), named by the hash of the sources and
+flags under ``build/kernels/`` at the repo root, which ``.gitignore``
+lists. The wrappers (``ops/hamming.py``, ``ops/associate.py``) call the C
+entries through ``ctypes`` on PyTorch's current stream; each entry returns
+``cudaGetLastError()``.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,13 +58,25 @@ def load() -> Kernels:
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+        objs = [so.with_name(f"{p.stem}.{os.getpid()}.o") for p in sources]
         t0 = time.perf_counter()
-        r = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                                   str(p)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for p, o in zip(sources, objs)]
+        outs = [(p.communicate()[0], p.returncode) for p in procs]
+        log = "".join(text for text, _ in outs)
+        if any(rc for _, rc in outs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        r = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
+                            str(tmp), *map(str, objs)], capture_output=True,
+                           text=True)
         seconds = time.perf_counter() - t0
-        log = r.stdout + r.stderr
+        log += r.stdout + r.stderr
+        for o in objs:
+            o.unlink()
         if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{log}")
         os.replace(tmp, so)     # atomic: a concurrent build never sees half
     return Kernels(lib=ctypes.CDLL(str(so)), path=so, log=log,
                    seconds=seconds)

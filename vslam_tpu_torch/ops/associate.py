@@ -10,16 +10,21 @@ lexicographic (distance, id) minimum. The semantics are those of
 ``vslam_tpu.mapping.point_map.associate``'s XLA path.
 
 On Hopper (``csrc/associate.cu``) the TPU kernel's running best, carried in
-VMEM across a sequential map-block grid axis, has no counterpart: the grid
-is (keypoint tile x map chunk), each block reduces its chunk to a packed key
-``d * 2^18 + id`` per keypoint and combines into the (N,) output, pre-filled
-with ``NO_KEY``, by ``atomicMin`` — order-free, so deterministic. Blocks
-whose chunk starts past the insert cursor read ``size`` on the device and
-exit (the host never syncs on it). A thread owns a keypoint and walks the
-chunk's projected pixels from shared memory; only pairs inside the pixel
-gate (a few per keypoint) read the archive and pay the ``__popc`` over 8
-words per occupied slot. What bounds it is the pixel-gate sweep
-(N x size pair tests), not the Hamming work; there is no bit-plane matmul.
+VMEM across a sequential map-block grid axis, has no counterpart. Persistent
+blocks split the (512-keypoint tile x map row) pairs up to the insert cursor,
+read on the device (the host never syncs on it), into equal ranges. Map
+chunks of 128 rows arrive in shared memory by ``cp.async`` while the
+previous one is swept; each thread box-tests 4 keypoints against every
+point of the chunk with predicated compares, and a warp queues the points
+that fall in some keypoint's box. A warp drains its queue when it is full
+and at the end of a tile: the exact pixel gates of both tiers (this
+module's arithmetic, no FMA), then eight lanes per pair load its archive
+row, the min over occupied slots of popc(a ^ b) passes both tiers' Hamming
+gates or not, and a packed key ``d * 2^18 + id`` goes to the keypoint's best
+by ``atomicMin`` (shared, then one global ``atomicMin`` per keypoint into the
+(N,) output pre-filled with ``NO_KEY``): order-free, so deterministic. What
+bounds it is the pixel-gate sweep (N x size pair tests of 5 f32 operations),
+not the Hamming work.
 
 ``associate_cuda`` is the wrapper: CPU tensors run ``associate_plain``;
 CUDA tensors launch the kernel or raise. ``launches`` counts launches.
@@ -39,7 +44,6 @@ launches = 0
 NO_KEY = 1 << 30      # larger than any packed key (256 * 2^18 + id < 2^27)
 BIG = 1 << 14         # distance reported when nothing is found
 ID_BITS = 18          # packed-key id field: capacity <= 2^18
-_CHUNK = 2048         # csrc/associate.cu map points per block (grid.y)
 
 
 def decode(key):
@@ -158,12 +162,11 @@ def associate_cuda(muv, vis, last_seen, dcount, desc, size, frame_idx,
                                block=block, **gates)
     if muv.device.type != "cuda":
         raise ValueError(f"unsupported device {muv.device}")
-    if (C + _CHUNK - 1) // _CHUNK > 65535:
-        raise ValueError(f"capacity {C} exceeds the kernel's grid")
-    if desc.data_ptr() % 16 or kp_desc.data_ptr() % 16 \
-            or muv.data_ptr() % 8 or kp_uv.data_ptr() % 8:
-        raise ValueError("the kernel reads descriptors as 16-byte and "
-                         "pixels as 8-byte vectors: misaligned input")
+    if any(t.data_ptr() % 16 for t in (muv, vis, last_seen, dcount, desc,
+                                       kp_desc)) or kp_uv.data_ptr() % 8:
+        raise ValueError("the kernel copies map rows and descriptors in "
+                         "16-byte and reads keypoint pixels in 8-byte "
+                         "pieces: misaligned input")
     out = torch.full((N,), NO_KEY, dtype=torch.int32, device=muv.device)
     stream = torch.cuda.current_stream(muv.device).cuda_stream
     with torch.cuda.device(muv.device):

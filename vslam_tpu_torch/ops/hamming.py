@@ -4,13 +4,15 @@ Replaces the Pallas TPU kernel ``vslam_tpu/ops/pallas_hamming.py``
 ``_hamming_kernel`` (launched by ``hamming_pallas``): ``popcount(a ^ b)``
 summed over the 8 words of two packed 256-bit descriptors, for every pair.
 
-On Hopper (``csrc/hamming.cu``) a block stages 32 rows of ``d1`` and 128 of
-``d2`` in shared memory and each thread writes 16 outputs with ``__popc``;
-the ragged edge is masked, so N1 and N2 need no padding (the Pallas kernel
-needs multiples of 256). What bounds it on this card is writing the
-(N1, N2) int32 matrix — 37.7 MB at 3072 x 3072 — not the popcounts (8
-xor+popc per 4 bytes written); keeping the matrix out of device memory
-(fusing the matcher's top-2 / cross-check reductions) is later work.
+On Hopper (``csrc/hamming.cu``) the bit product runs on the b1 tensor
+cores: one ``mma.sync`` m16n8k256 ``.and.popc`` gives popc(a & b) for a 16 x
+8 block of descriptor pairs, and d = |a| + |b| - 2 popc(a & b). A block
+stages its 16 x 128 output tile in shared memory and writes it with 16-byte
+stores. The ragged edge is masked, so N1 and N2 need no padding (the
+Pallas kernel needs multiples of 256). What bounds it on the card is writing
+the (N1, N2) int32 matrix (37.75 MB at 3072 x 3072); keeping the matrix out
+of device memory (fusing the matcher's top-2 / cross-check reductions) is
+later work.
 
 ``hamming_cuda`` is the wrapper: a CPU tensor runs ``hamming_plain``; a CUDA
 tensor launches the kernel or raises. ``launches`` counts kernel launches.
@@ -27,7 +29,7 @@ from . import _build
 
 launches = 0
 
-_TM = 32          # csrc/hamming.cu rows of d1 per block (grid.y)
+_TM = 16          # csrc/hamming.cu rows of d1 per block (grid.y)
 
 
 def hamming_plain(d1, d2):
