@@ -10,10 +10,15 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
      descriptors at 3072 x 3072 and at ragged shapes, exact; its time with
      the L2 cache warm and flushed, its bound, and torch.cdist(p=0) on the
      bit planes as the library yardstick (checked equal);
+     kernel, plain and library times are of single calls, each between
+     two CUDA events after a spin that hides the host's enqueue
+     (``_time_each_ms``); the kernels' back-to-back mean (``_time_ms``,
+     earlier records' timer) is printed beside them;
   4. kernel K2 (search-by-projection) vs its plain version: capacity
      131072 holding 51200, then 120000, corridor distractors plus planted
      near-duplicates (hits in both tiers), 3072 keypoints, exact; its time
-     and bound at each size;
+     and bound at each size; then a flood (every pair inside the gate) that
+     overflows the kernel's queues in every block, exact;
   5. the tracking step on CUDA vs on the CPU (plain versions), small
      config, the same injected RANSAC samples, per-frame tolerances;
   6. the tracking step: bootstrap + 11 ``track_step`` of the default config
@@ -168,19 +173,21 @@ def check_k1(torch, dev, failures):
     n1, n2 = (t.shape[0] for t in big)
     kernel = lambda: hamming.hamming_cuda(*big)
     ms = _time_each_ms(torch, kernel)
+    ms_b2b = _time_ms(torch, kernel)
     # reading 256 MB leaves the L2 holding other, clean lines: the output's
     # lines miss, and no write-back of someone else's data is charged to K1
     scrub = torch.ones(256 * 2**20 // 4, dtype=torch.int32, device=dev)
     ms_flushed = _time_each_ms(torch, kernel, before=scrub.sum)
     del scrub
-    plain_ms = _time_ms(torch, lambda: hamming.hamming_plain(*big))
+    plain_ms = _time_each_ms(torch, lambda: hamming.hamming_plain(*big))
     out_bytes, in_bytes = 4 * n1 * n2, 32 * (n1 + n2)
     bound_ms, bound_by = _bound(out_bytes + in_bytes, 2 * 256 * n1 * n2,
                                 INT8_OPS_PER_S)
     l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size", 0)
     print(f"K1 {n1}x{n2}: kernel {ms:.4f} ms with the L2 warm, "
           f"{ms_flushed:.4f} ms with it flushed (256 MB read before each "
-          f"launch), plain {plain_ms:.4f} ms")
+          f"launch), plain {plain_ms:.4f} ms (single calls); kernel "
+          f"{ms_b2b:.4f} ms back to back")
     print(f"K1 bound {bound_ms:.4f} ms ({bound_by}: "
           f"{(out_bytes + in_bytes) / 1e6:.2f} MB at 3.35 TB/s; the bit "
           f"product {2 * 256 * n1 * n2 / 1e9:.2f} G ops at 1979 TOP/s takes "
@@ -202,8 +209,8 @@ def check_k1(torch, dev, failures):
     if not same:
         failures.append("torch.cdist(p=0) disagrees with K1")
     return dict(max_abs_err=err, ms=ms, ms_l2_flushed=ms_flushed,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+                ms_back_to_back=ms_b2b, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
 def k2_inputs(torch, dev, cfg, n_map=51200, seed=1):
@@ -267,6 +274,59 @@ def k2_inputs(torch, dev, cfg, n_map=51200, seed=1):
 K2_SIZES = (51200, 120000)
 
 
+def check_k2_flood(torch, dev, cfg, failures):
+    """Phase 4, K2's queues: tests/torch_scenes.py's flood at capacity
+    131072 (120000 points and 1000 keypoints in one 4 px disk, every pair
+    inside the gate). From the kernel's own grid, each block's range holds
+    more than twice the map points a warp's queue holds, and a full queue
+    brings more pairs than a warp's candidate list holds, so both drain
+    mid-sweep. Exact against the plain version, with hits in both tiers.
+    Returns max |kernel - plain| of the packed keys."""
+    import importlib.util
+    from pathlib import Path
+
+    from vslam_tpu_torch.mapping import point_map
+    from vslam_tpu_torch.ops import associate as k2
+
+    path = Path(__file__).resolve().parent / "tests" / "torch_scenes.py"
+    spec = importlib.util.spec_from_file_location("torch_scenes", path)
+    scenes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(scenes)
+    geo = k2.geometry(dev)
+    C, size, n_kp = cfg.map.capacity, 120000, 1000
+    rows = size * -(-n_kp // geo["tile"]) / geo["blocks"]
+    pairs = geo["queue_points"] * geo["warp_keypoints"]
+    sc = scenes.k2_flood(C, size, n_kp, cfg.map.obs_per_point)
+    muv, vis = scenes.k2_pixels(sc)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    i32 = lambda x: torch.tensor(x, dtype=torch.int32, device=dev)
+    args = dict(muv=t(muv), vis=t(vis), last_seen=t(sc["last_seen"]),
+                dcount=t(sc["dcount"]), desc=t(sc["desc"]), size=i32(size),
+                frame_idx=i32(sc["frame"]), kp_uv=t(sc["kp_uv"]),
+                kp_free=t(sc["kp_free"]), kp_desc=t(sc["kp_desc"]))
+    kw = point_map.gates(cfg.matching)
+    got = k2.associate_cuda(**args, **kw)
+    want = k2.associate_plain(**args, **kw)
+    same = bool(torch.equal(got, want))
+    err = int((got.long() - want.long()).abs().max())
+    pid, d = k2.decode(want)
+    hit = pid >= 0
+    strict = int((hit & (d < cfg.matching.hamming_max)).sum())
+    band = int((hit & (d >= cfg.matching.hamming_max)).sum())
+    print(f"K2 flood C={C} size={size} N={n_kp}: {geo['blocks']} blocks, "
+          f"{rows:.0f} map rows per block against a warp queue of "
+          f"{geo['queue_points']} points; a full queue brings up to {pairs} "
+          f"pairs against a list of {geo['queue_pairs']}; equal={same}, hits "
+          f"strict={strict} reacq-band={band}")
+    if not same:
+        failures.append("K2 disagrees with its plain version on the flood")
+    if rows <= 2 * geo["queue_points"] or pairs <= geo["queue_pairs"]:
+        failures.append("K2 flood does not overflow the kernel's queues")
+    if strict == 0 or band == 0:
+        failures.append("K2 flood did not exercise both tiers")
+    return err
+
+
 def check_k2(torch, dev, cfg, failures):
     """Phase 4: K2 exact against its plain version on two maps (sizes
     K2_SIZES, capacity 131072, 3072 keypoints), with hits in both tiers;
@@ -299,35 +359,41 @@ def check_k2(torch, dev, cfg, failures):
         if strict == 0 or band == 0:
             failures.append(f"K2 check at size {size} did not exercise both "
                             "tiers")
-        ms = _time_each_ms(torch, lambda: k2.associate_cuda(**args, **kw))
+        kernel = lambda: k2.associate_cuda(**args, **kw)
+        ms = _time_each_ms(torch, kernel)
+        ms_b2b = _time_ms(torch, kernel)
         # the same call with both pixel gates closed: the sweep alone
         shut = dict(kw, r_sq=-1.0, reacq_r_sq=-1.0)
         sweep_ms = _time_each_ms(torch,
                                  lambda: k2.associate_cuda(**args, **shut))
-        plain_ms = _time_ms(torch, lambda: k2.associate_plain(**args, **kw),
-                            reps=5)
+        plain_ms = _time_each_ms(
+            torch, lambda: k2.associate_plain(**args, **kw), reps=5)
         K = cfg.map.obs_per_point
         n_bytes = size * (8 + 1 + 4 + 4 + 32 * K) + N * (8 + 1 + 32 + 4)
         bound_ms, bound_by = _bound(n_bytes, 5 * N * size, F32_OPS_PER_S)
         print(f"K2 size {size}: kernel {ms:.4f} ms (with the wrapper's "
               f"12 KB output fill; {sweep_ms:.4f} ms with the pixel gates "
-              f"closed, the sweep alone), plain {plain_ms:.4f} ms; bound "
+              f"closed, the sweep alone), plain {plain_ms:.4f} ms (single "
+              f"calls); kernel {ms_b2b:.4f} ms back to back; bound "
               f"{bound_ms:.4f} ms ({bound_by}: 5 x {N} x {size} f32 ops at "
               f"67 TFLOP/s; {n_bytes / 1e6:.2f} MB at 3.35 TB/s takes "
               f"{n_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); share "
               f"{bound_ms / ms:.2f}")
-        res[size] = dict(max_abs_err=err, ms=ms, sweep_ms=sweep_ms,
-                         plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by)
+        res[size] = dict(max_abs_err=err, ms=ms, ms_back_to_back=ms_b2b,
+                         sweep_ms=sweep_ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
         if first is None:
             first = m
         del args, m
+    flood_err = check_k2_flood(torch, dev, cfg, failures)
     print("K2 library: none (no single PyTorch call computes "
           "search-by-projection)")
     main = res[K2_SIZES[0]]
     by_size = lambda key: {str(k): r[key] for k, r in res.items()}
-    return dict(max_abs_err=max(r["max_abs_err"] for r in res.values()),
+    return dict(max_abs_err=max([flood_err]
+                                + [r["max_abs_err"] for r in res.values()]),
                 ms=main["ms"], plain_ms=main["plain_ms"],
+                ms_back_to_back=main["ms_back_to_back"],
                 bound_ms=main["bound_ms"], bound_by=main["bound_by"],
                 library_ms=None, ms_by_size=by_size("ms"),
                 sweep_ms_by_size=by_size("sweep_ms"),

@@ -124,23 +124,28 @@ def test_k2_kernel_matches_plain(cuda, seed, reacq):
                                .any())
 
 
+def _scene_args(sc, dev):
+    """K2's positional inputs for a torch_scenes scene, on ``dev``."""
+    muv, vis = scenes.k2_pixels(sc)
+    t = lambda a, dt=None: torch.as_tensor(np.array(a), dtype=dt).to(dev)
+    return (t(muv), t(vis), t(sc["last_seen"]), t(sc["dcount"]),
+            t(sc["desc"]), t(sc["size"], torch.int32),
+            t(sc["frame"], torch.int32), t(sc["kp_uv"]), t(sc["kp_free"]),
+            t(sc["kp_desc"]))
+
+
 @pytest.mark.parametrize("name", scenes.K2_SCENES)
 def test_k2_kernel_on_adversarial_scenes(cuda, name):
-    """A dense cluster (the per-warp candidate queue fills and drains many
-    times within one chunk), ties across ids and archive slots (the
-    smallest id wins), points on the r^2 and reacq r^2 boundaries with
-    size and N multiples of neither the chunk nor the keypoint tile."""
+    """A dense cluster, ties across ids and archive slots (the smallest id
+    wins), points on the r^2 and reacq r^2 boundaries with size and N
+    multiples of neither the chunk nor the keypoint tile, and a small
+    flood (every pair inside the gate)."""
     g = CFG.matching
     sc = scenes.k2_scene(name, K=CFG.map.obs_per_point, r=g.search_radius,
                          rq=g.reacq_radius, hmax=g.hamming_max,
                          rq_hmax=g.reacq_hamming_max,
                          max_age=g.reacq_max_age)
-    muv, vis = scenes.k2_pixels(sc)
-    t = lambda a, dt=None: torch.as_tensor(np.array(a), dtype=dt).to(cuda)
-    args = (t(muv), t(vis), t(sc["last_seen"]), t(sc["dcount"]),
-            t(sc["desc"]), t(sc["size"], torch.int32),
-            t(sc["frame"], torch.int32), t(sc["kp_uv"]), t(sc["kp_free"]),
-            t(sc["kp_desc"]))
+    args = _scene_args(sc, cuda)
     kw = point_map.gates(g)
     before = k2.launches
     got = k2.associate_cuda(*args, **kw)
@@ -148,6 +153,31 @@ def test_k2_kernel_on_adversarial_scenes(cuda, name):
     assert torch.equal(got, k2.associate_plain(*args, **kw))
     pid, dist = k2.decode(got)
     scenes.check_expect(sc, pid.cpu().numpy(), dist.cpu().numpy())
+
+
+def test_k2_queues_overflow_in_every_block(cuda):
+    """The full-capacity flood: every pair inside the gate, and every
+    block's range (from the kernel's own grid) more than twice the map
+    points a warp's queue holds, so each warp's queue fills and drains
+    mid-sweep; a full queue brings more pairs than the warp's candidate
+    list holds, so that list is scored mid-drain too. Bit-exact, with hits
+    in both tiers."""
+    geo = k2.geometry(cuda)
+    C, size, n_kp = 131072, 120000, 1000
+    tiles = -(-n_kp // geo["tile"])
+    assert size * tiles // geo["blocks"] > 2 * geo["queue_points"], geo
+    assert geo["queue_points"] * geo["warp_keypoints"] > geo["queue_pairs"]
+    sc = scenes.k2_flood(C, size, n_kp, K=CFG.map.obs_per_point)
+    args = _scene_args(sc, cuda)
+    kw = point_map.gates(CFG.matching)
+    before = k2.launches
+    got = k2.associate_cuda(*args, **kw)
+    assert k2.launches == before + 1
+    assert torch.equal(got, k2.associate_plain(*args, **kw))
+    pid, dist = k2.decode(got)
+    hmax = CFG.matching.hamming_max
+    assert int(((pid >= 0) & (dist < hmax)).sum()) > 0
+    assert int(((pid >= 0) & (dist >= hmax)).sum()) > 0
 
 
 def test_k2_skips_chunks_past_the_cursor(cuda):

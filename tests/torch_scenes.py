@@ -11,7 +11,7 @@ a gate's boundary in both frameworks.
 import numpy as np
 
 K1_SCENES = ("zeros_ones", "one_hot")
-K2_SCENES = ("cluster", "ties", "boundary")
+K2_SCENES = ("cluster", "ties", "boundary", "flood")
 
 W, H = 1248, 384            # KITTI-sized image for the K2 scenes
 FRAME = 20                  # current frame of the K2 scenes
@@ -82,8 +82,9 @@ def k2_scene(name, K=4, C=4096, r=12.0, rq=6.0, hmax=64, rq_hmax=96,
     id or -1, distance) that the association must give.
 
     ``cluster``: 1600 points inside a 4 px disk with 120 keypoints in it,
-    every pair inside the 12 px gate (192,000 candidates), so a kernel's
-    candidate queue fills many times within one map chunk.
+    every pair inside the 12 px gate (192,000 candidates), among distractors.
+    ``flood``: ``k2_flood`` at this capacity (size C - 96, 300 keypoints);
+    at capacity 131072 it overflows the kernel's queues in every block.
     ``ties``: per keypoint 2-5 points at one Hamming distance in varied
     archive slots, ids spread over the map; the smallest id must win; a
     closer descriptor outside the radius and one in an unoccupied slot are
@@ -147,6 +148,9 @@ def k2_scene(name, K=4, C=4096, r=12.0, rq=6.0, hmax=64, rq_hmax=96,
             sc["expect"].append((k, min(ids), d))
         return sc
 
+    if name == "flood":
+        return k2_flood(C, C - 96, 300, K)
+
     if name == "boundary":
         rng = np.random.RandomState(13)
         size, n_kp = 1037, 600
@@ -196,6 +200,42 @@ def k2_scene(name, K=4, C=4096, r=12.0, rq=6.0, hmax=64, rq_hmax=96,
                 sc["expect"].append((k, row, 50))
         return sc
     raise ValueError(name)
+
+
+def k2_flood(C, size, n_kp, K=4, seed=14):
+    """A k2_scene in which every map point below ``size`` and every keypoint
+    lie in one 4 px disk, so every pair is inside the 12 px gate: each warp
+    of the kernel queues every visible point of its range, and each queued
+    point brings a pair for every free keypoint of the warp. Built with
+    vectorised numpy, so it scales to a full-capacity map.
+
+    A point's occupied slot holds a keypoint's descriptor with a 2^-m share
+    of its bits flipped, m = 1..4 per keypoint: keypoints at m = 1 (about
+    128 bits) match at best in the reacq band, the others in the strict
+    tier, often tied across ids."""
+    rng = np.random.RandomState(seed)
+    sc = _base(rng, C, K, size, n_kp)
+    centre = np.array([600.0, 190.0])
+
+    def disk(n):
+        a = rng.uniform(0, 2 * np.pi, n)
+        rad = 4.0 * np.sqrt(rng.uniform(0, 1, n))
+        return centre + np.stack([rad * np.cos(a), rad * np.sin(a)], 1)
+
+    sc["pix"][:size] = disk(size)
+    sc["kp_uv"][:] = disk(n_kp)
+    sc["last_seen"][:size] = FRAME - rng.randint(0, 12, size)
+    src = rng.randint(n_kp, size=size)
+    level = rng.randint(1, 5, n_kp)[src]
+    flip = np.full((size, 8), -1, np.int32)
+    for m in range(4):
+        flip &= np.where((m < level)[:, None], _desc(rng, size), -1)
+    slot = (rng.uniform(size=size) * np.minimum(sc["dcount"][:size], K)) \
+        .astype(np.int64)
+    sc["desc"][np.arange(size) * K + slot] = sc["kp_desc"][src] ^ flip
+    sc["alive"][rng.choice(size, size // 50, replace=False)] = False
+    sc["kp_free"][rng.choice(n_kp, n_kp // 10, replace=False)] = False
+    return sc
 
 
 def k2_pixels(sc):

@@ -409,7 +409,41 @@ associate_kernel(const float2* __restrict__ muv,
   close_tile(sm, qn, tile * TILE, desc, kp_desc, g, out_key);
 }
 
+// The persistent grid on the current device: as many blocks as its SMs hold
+// at once. Queried once per device; later launches make one cudaGetDevice.
+constexpr int MAX_DEVICES = 64;
+
+cudaError_t grid_blocks(int* blocks) {
+  static int cached[MAX_DEVICES] = {};   // same value from every writer
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < MAX_DEVICES && cached[dev] > 0) {
+    *blocks = cached[dev];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, associate_kernel, THREADS, 0);
+  if (err != cudaSuccess) return err;
+  *blocks = sms * max(per_sm, 1);
+  if (dev < MAX_DEVICES) cached[dev] = *blocks;
+  return cudaSuccess;
+}
+
 }  // namespace
+
+// The work split on the current device, for tests that must overflow the
+// queues: out = {blocks, keypoints per tile, queued map points per warp,
+// candidate pairs per warp, keypoints per warp}.
+extern "C" int vslam_associate_geometry(int* out) {
+  int blocks = 0;
+  const cudaError_t err = grid_blocks(&blocks);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = blocks, out[1] = TILE, out[2] = QE, out[3] = CQ, out[4] = 32 * R;
+  return 0;
+}
 
 extern "C" int vslam_associate(const void* muv, const void* vis,
                                const void* last_seen, const void* dcount,
@@ -420,16 +454,10 @@ extern "C" int vslam_associate(const void* muv, const void* vis,
                                int hmax, float rq_sq, int rq_hmax,
                                int max_age, void* stream) {
   if (C > 0 && N > 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, associate_kernel, THREADS, 0);
+    int blocks = 0;
+    const cudaError_t err = grid_blocks(&blocks);
     if (err != cudaSuccess) return (int)err;
-    associate_kernel<<<sms * max(per_sm, 1), THREADS, 0,
-                       (cudaStream_t)stream>>>(
+    associate_kernel<<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
         static_cast<const float2*>(muv), static_cast<const uint8_t*>(vis),
         static_cast<const int32_t*>(last_seen),
         static_cast<const int32_t*>(dcount), static_cast<const uint4*>(desc),

@@ -60,23 +60,27 @@ def load() -> Kernels:
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         objs = [so.with_name(f"{p.stem}.{os.getpid()}.o") for p in sources]
         t0 = time.perf_counter()
-        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
-                                   str(p)], stdout=subprocess.PIPE,
-                                  stderr=subprocess.STDOUT, text=True)
-                 for p, o in zip(sources, objs)]
-        outs = [(p.communicate()[0], p.returncode) for p in procs]
-        log = "".join(text for text, _ in outs)
-        if any(rc for _, rc in outs):
-            raise RuntimeError(f"nvcc failed:\n{log}")
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
-                            str(tmp), *map(str, objs)], capture_output=True,
-                           text=True)
+        try:
+            procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o",
+                                       str(o), str(p)],
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for p, o in zip(sources, objs)]
+            outs = [(p.communicate()[0], p.returncode) for p in procs]
+            log = "".join(text for text, _ in outs)
+            if any(rc for _, rc in outs):
+                raise RuntimeError(f"nvcc failed:\n{log}")
+            r = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o",
+                                str(tmp), *map(str, objs)],
+                               capture_output=True, text=True)
+            log += r.stdout + r.stderr
+            if r.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                                   f"{log}")
+        finally:
+            for o in objs:
+                o.unlink(missing_ok=True)
         seconds = time.perf_counter() - t0
-        log += r.stdout + r.stderr
-        for o in objs:
-            o.unlink()
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{log}")
         os.replace(tmp, so)     # atomic: a concurrent build never sees half
     return Kernels(lib=ctypes.CDLL(str(so)), path=so, log=log,
                    seconds=seconds)

@@ -109,6 +109,21 @@ def _entry():
                            i, i, i, f, i, f, i, i, p])
 
 
+def geometry(device) -> dict:
+    """The kernel's work split on a CUDA ``device``: persistent ``blocks``,
+    keypoints per ``tile``, and per warp its queue of map points
+    (``queue_points``), its list of candidate pairs (``queue_pairs``) and its
+    keypoints (``warp_keypoints``). A block sweeps about size x tiles /
+    blocks map rows, every one of which a warp may queue."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device):
+        err = _build.declare("vslam_associate_geometry",
+                             [ctypes.c_void_p])(ctypes.addressof(out))
+    _build.check(err, "associate geometry")
+    return dict(zip(("blocks", "tile", "queue_points", "queue_pairs",
+                     "warp_keypoints"), out))
+
+
 def _want(t, name, dtype, shape):
     if t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: want {tuple(shape)} {dtype}, got "
