@@ -41,11 +41,24 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
      (initial) and 1e-3 (final) relative, equal accept flags. Prints ms per
      solve and per LM iteration, window and global (CUDA events);
  10. the bounded-map scenario of tests/test_map_lifecycle.py on CUDA
-     (capacity 512, 24 frames): maintenance runs, no insert drops.
+     (capacity 512, 24 frames): maintenance runs, no insert drops;
+ 11. the chunked driver at full width: ``SLAMSystem.process_chunk`` over
+     phase 8's frames (bootstrap + 25, then 5), the frame body one CUDA
+     graph replayed per frame. Held to phase 8 frame by frame (flags equal,
+     inliers and map size within 2, poses to 1e-3 / 5e-3, the BA event's
+     outcome); no host sync inside the replay loop (``"error"`` mode); K1
+     and K2 captured once per frame body. Prints capture seconds, the graph
+     pool's peak, chunked ms/frame beside phase 8's, the graph's device
+     ms per replay and maintenance's cost inside a graph;
+ 12. maintenance and rendering inside the graph: phase 10's run through
+     chunks (maintenance at phase 10's frames, no drops), 12 frames drawn
+     by ``render_frame_device`` inside the graph (>= 9 of 11 tracked), and
+     the renderer on the card against its CPU run.
 
 Each phase prints its seconds. The line before the last but one is one
 JSON object per kernel (route, source, the TPU kernel it replaces, launches
-on the main path of phase 8 and on the tracking step of phase 6, max |error|
+on the main path of phase 8, on the tracking step of phase 6 and in phase
+11's chunks (captured launches times replays), max |error|
 vs the plain version, kernel, plain and library times, and the bound with
 what bounds it); then the nvidia-smi line; the
 last line is ``{"ok": true, "device": {...}}``. No GPU: exits 2 and prints
@@ -738,7 +751,9 @@ def run_slam_path(torch, dev, failures):
     wide = [p for p, t in held if t.dtype == torch.float64]
     if wide:
         failures.append(f"float64 in the state: {wide}")
-    return s, launches, ms, ms_global
+    p8 = dict(frames=frames, infos=infos, poses=est, events=events,
+              ms=[1e3 * w for w, k in zip(wall, kinds) if k != "bootstrap"])
+    return s, launches, ms, ms_global, p8
 
 
 def check_ba(torch, dev, s, failures):
@@ -836,6 +851,241 @@ def run_bounded_map(torch, dev, failures):
     if not all(x["success"] for x in infos[-5:]) \
             or not infos[-1]["num_inliers"] > 30:
         failures.append("bounded map: tracking lost after maintenance")
+    return cfg, frames, infos
+
+
+def _frame_rows(s):
+    return [r for r in s.metrics.records
+            if r.get("kind") == "frame" and "success" in r]
+
+
+def _chunks(torch, s, inputs, sizes, render_fn=None):
+    """``s.process_chunk`` over consecutive slices of ``inputs``; each call
+    under ``set_sync_debug_mode("warn")`` (the replay loop itself runs
+    under "error"), its syncs counted. Returns the calls' results and
+    sync counts."""
+    out, syncs, lo = [], [], 0
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for k in sizes:
+            torch.cuda.synchronize()
+            n0 = len(caught)
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out.append(s.process_chunk(inputs[lo:lo + k],
+                                           render_fn=render_fn))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            syncs.append(sum("called a synchronizing" in str(w.message)
+                             for w in caught[n0:]))
+            lo += k
+    return out, syncs
+
+
+def _graph_ms(torch, fn, reps: int = 20) -> float:
+    """Device ms per replay of ``fn`` captured as a CUDA graph (CUDA
+    events around ``reps`` back-to-back replays)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    return _time_ms(torch, g.replay, reps=reps)
+
+
+def run_chunked_path(torch, dev, p8, failures):
+    """Phase 11: the chunked driver at full width. ``process_chunk`` of the
+    default config over phase 8's 31 frames, bootstrap + 25 then 5 (25 =
+    keyframe_every * local_ba_every: the window-BA event lands on frame 25
+    as in phase 8). Held to phase 8 frame by frame. The frame body is one
+    captured graph replayed per frame: K1 and K2 are captured once each and
+    launch on every replay; the replay loop runs with
+    ``set_sync_debug_mode("error")``. Prints capture seconds, the graph
+    pool's peak, chunked ms/frame (host clock over each chunk's replays
+    through the one fetch of its rows, capture excluded) beside phase 8's,
+    the graph's device ms per replay, and maintenance's cost inside a
+    graph (computed on every frame, kept where it fires)."""
+    from vslam_tpu_torch.config import VSLAMConfig
+    from vslam_tpu_torch.ops import associate as k2
+    from vslam_tpu_torch.ops import hamming
+    from vslam_tpu_torch.pipeline import scan_driver
+    from vslam_tpu_torch.pipeline.slam import SLAMSystem
+
+    cfg = VSLAMConfig()
+    frames = p8["frames"]
+    n = frames.shape[0]
+    align = cfg.pipeline.keyframe_every * cfg.pipeline.local_ba_every
+    s = SLAMSystem(cfg, dev)
+    hamming.launches = 0
+    k2.launches = 0
+    res, syncs = _chunks(torch, s, frames, (align + 1, n - align - 1))
+    counted = {"hamming": hamming.launches, "associate": k2.launches}
+    g = s.chunk_graphs[None]
+    launches = {k: v * g.replays for k, v in g.captured_launches.items()}
+    print(f"chunked: capture {g.capture_s:.2f} s (eager warm-up + capture), "
+          f"graph pool peak {g.pool_peak_bytes / 2 ** 20:.1f} MiB; kernels "
+          f"captured per frame {g.captured_launches}, replays {g.replays}, "
+          f"launches {launches} (wrapper counters {counted}: one eager "
+          f"warm-up and one capture); host syncs per process_chunk call "
+          f"{syncs} (the rows' fetch, BA's own; 0 inside the replay loop, "
+          f"enforced)")
+    if g.captured_launches != {"hamming": 1, "associate": 1}:
+        failures.append(f"chunked: kernels captured {g.captured_launches}, "
+                        "want one of each per frame")
+    if g.replays != n - 1:
+        failures.append(f"chunked: {g.replays} replays for {n - 1} frames")
+
+    rows, want = _frame_rows(s), p8["infos"][1:]
+    est = s.poses()
+    err = np.abs(est - p8["poses"]).max(axis=(1, 2))
+    bad = []
+    for i, (x, y) in enumerate(zip(want, rows), 1):
+        if (x["keyframe"] and x["success"]) != y["keyframe"] or any(
+                x[k] != y[k] for k in ("success", "ran_maintenance")):
+            bad.append(f"frame {i} flags")
+        if any(abs(x[k] - y[k]) > 2 for k in ("num_inliers", "map_size")):
+            bad.append(f"frame {i} inliers {x['num_inliers']}/"
+                       f"{y['num_inliers']} map {x['map_size']}/"
+                       f"{y['map_size']}")
+    if len(rows) != len(want):
+        bad.append(f"{len(rows)} rows for {len(want)} frames")
+    if err[:align + 1].max() > 1e-3 or err.max() > 5e-3:
+        bad.append(f"poses off phase 8's by {err.max():.2e}")
+    outcome = lambda ev: [(e.get("skipped"), e["ba_result_accepted"])
+                          for e in ev]
+    events = [r for r in s.metrics.records if r.get("kind") == "ba"]
+    if outcome(events) != outcome(p8["events"]) or not res[0]["ran_ba"]:
+        bad.append(f"BA events {outcome(events)} vs phase 8's "
+                   f"{outcome(p8['events'])}")
+    ok = sum(r["success"] for r in rows)
+    print(f"chunked vs phase 8: tracked {ok}/{len(rows)}, max |pose diff| "
+          f"{err[:align + 1].max():.2e} to frame {align}, {err.max():.2e} "
+          f"after; BA events {outcome(events)}; disagreements {bad}")
+    failures.extend(f"chunked vs phase 8: {b}" for b in bad)
+
+    per = [r["track_s"] / r["frames"] for r in res]
+    ms_frame = 1e3 * sum(r["track_s"] for r in res) / (n - 1)
+    replay_ms = _time_ms(torch, g.graph.replay, reps=10)
+    st, sr = s.state, s.kf_store
+
+    def maintenance():
+        need = st.map.size >= s._maint_high_water
+        m2, pid2, obs2 = scan_driver._maintenance(
+            st.map, st.prev_map_id, sr.obs_pid, s._maint_min_free)
+        return (scan_driver._select(need, m2, st.map),
+                torch.where(need, pid2, st.prev_map_id),
+                torch.where(need, obs2, sr.obs_pid))
+    maint_ms = _graph_ms(torch, maintenance)
+    p8_ms = float(np.mean(p8["ms"]))
+    print(f"chunked ms/frame {ms_frame:.3f} (host clock, chunks "
+          f"{[round(1e3 * x, 3) for x in per]}; the bootstrap and BA "
+          f"excluded), graph replay {replay_ms:.3f} ms/frame (CUDA events), "
+          f"maintenance in a graph {maint_ms:.3f} ms/frame at capacity "
+          f"{cfg.map.capacity}; phase 8 process {p8_ms:.3f} ms/frame over "
+          f"its {len(p8['ms'])} tracked frames, {p8_ms / ms_frame:.2f}x")
+    return dict(launches=launches, ms_frame=ms_frame, replay_ms=replay_ms,
+                capture_s=g.capture_s,
+                pool_mib=g.pool_peak_bytes / 2 ** 20)
+
+
+def run_chunked_bounded(torch, dev, p10, failures):
+    """Phase 12, first run: phase 10's capacity-512 run through chunks of
+    9, 8 and 7 frames; maintenance fires inside the graph. Held to phase
+    10: equal ``ran_maintenance`` per frame, no dropped inserts, the last 5
+    frames tracked."""
+    from vslam_tpu_torch.pipeline.slam import SLAMSystem
+
+    cfg, frames, infos = p10
+    s = SLAMSystem(cfg, dev, enable_ba=False)
+    _, syncs = _chunks(torch, s, torch.from_numpy(np.stack(frames)).to(dev),
+                       (9, 8, 7))
+    rows = _frame_rows(s)
+    flags = [r["ran_maintenance"] for r in rows]
+    want = [x["ran_maintenance"] for x in infos[1:]]
+    print(f"chunked bounded map: maintenance at frames "
+          f"{[i for i, f in enumerate(flags, 1) if f]} (phase 10: "
+          f"{[i for i, f in enumerate(want, 1) if f]}), dropped inserts "
+          f"{s.dropped_inserts_total}, last 5 tracked "
+          f"{[r['success'] for r in rows[-5:]]}, syncs per call {syncs}")
+    if flags != want or not any(flags):
+        failures.append("chunked bounded map: maintenance flags differ from "
+                        "phase 10's")
+    if s.dropped_inserts_total:
+        failures.append(f"chunked bounded map: {s.dropped_inserts_total} "
+                        "inserts dropped")
+    if not all(r["success"] for r in rows[-5:]):
+        failures.append("chunked bounded map: tracking lost")
+
+
+def run_rendered_chunks(torch, dev, failures):
+    """Phase 12, second run: tests/test_scan_driver.py's renderer case, 12
+    frames that ``render_frame_device`` draws inside the graph from device
+    poses (a corridor scene made on the card), in chunks of 6; at least 9
+    of the 11 tracked frames succeed. Then the renderer on the card against
+    its CPU run on the same arrays: the no-overlap scene of
+    tests/test_loaders.py to 2e-5 on every pixel, the corridor (1200 and
+    3000 landmarks, overlapping splats) to 2e-5 on >= 99.9% of pixels."""
+    from vslam_tpu_torch.config import small_config
+    from vslam_tpu_torch.datasets import synthetic, synthetic_device
+    from vslam_tpu_torch.pipeline.slam import SLAMSystem
+
+    cfg = small_config()
+    W, H = cfg.camera.width, cfg.camera.height
+    poses = torch.from_numpy(synthetic.make_trajectory(12, step=0.6, seed=3)
+                             .astype(np.float32))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xyz, patches = synthetic_device.make_corridor_scene_device(
+        gen, poses.to(dev), 1200)
+    Kd = torch.from_numpy(cfg.camera.K()).to(dev)
+
+    def render(pose):
+        return synthetic_device.render_frame_device(xyz, patches, Kd, pose,
+                                                    W, H)
+    s = SLAMSystem(cfg, dev, enable_ba=False)
+    _, syncs = _chunks(torch, s, poses.to(dev), (6, 6), render_fn=render)
+    rows = _frame_rows(s)
+    ok = sum(r["success"] for r in rows)
+    g = s.chunk_graphs[render]
+    print(f"rendered in the graph: tracked {ok}/{len(rows)}, replays "
+          f"{g.replays}, kernels captured {g.captured_launches}, syncs per "
+          f"call {syncs}")
+    if ok < 9 or len(rows) != 11:
+        failures.append(f"rendered chunks: tracked {ok}/{len(rows)}")
+
+    gx, gy = np.meshgrid(np.linspace(-4, 4, 4), np.linspace(-2.5, 2.5, 3))
+    grid = np.stack([gx.ravel(), gy.ravel(), np.full(12, 20.0)],
+                    axis=1).astype(np.float32)
+    grid_K = np.array([[200.0, 0, 128], [0, 200.0, 96], [0, 0, 1]],
+                      np.float32)
+    scenes = [("no-overlap", torch.from_numpy(grid),
+               torch.from_numpy(synthetic.make_scene(num_points=12, seed=5)
+                                .patches),
+               torch.from_numpy(grid_K), torch.from_numpy(
+                   synthetic.make_trajectory(3, step=0.5, seed=5)
+                   .astype(np.float32)), 256, 192, 1.0)]
+    for n_pts in (1200, 3000):
+        x, p = synthetic_device.make_corridor_scene_device(
+            torch.Generator().manual_seed(n_pts), poses, n_pts)
+        scenes.append((f"corridor {n_pts}", x, p,
+                       torch.from_numpy(cfg.camera.K()), poses, W, H, 0.999))
+    for name, x, p, Km, ps, w, h, need in scenes:
+        worst, frac = 0.0, 1.0
+        for pose in ps:
+            want = synthetic_device.render_frame_device(x, p, Km, pose, w, h)
+            got = synthetic_device.render_frame_device(
+                x.to(dev), p.to(dev), Km.to(dev), pose.to(dev), w,
+                h).cpu()
+            d = (got - want).abs()
+            worst = max(worst, float(d.max()))
+            frac = min(frac, float((d <= 2e-5).float().mean()))
+        print(f"render_frame_device CUDA vs CPU, {name}: max |diff| "
+              f"{worst:.3e}, least share of pixels within 2e-5 {frac:.6f}")
+        if frac < need:
+            failures.append(f"render_frame_device CUDA vs CPU, {name}: "
+                            f"{frac:.6f} of pixels within 2e-5")
 
 
 def main() -> int:
@@ -886,14 +1136,20 @@ def main() -> int:
     check_lifecycle(torch, dev, k2_map, failures)
     del k2_map
     phase_done(7)
-    system, launches, ms_kind, ms_global = run_slam_path(torch, dev,
-                                                         failures)
+    system, launches, ms_kind, ms_global, p8 = run_slam_path(torch, dev,
+                                                             failures)
     phase_done(8)
     ba_ms = check_ba(torch, dev, system, failures)
     del system
     phase_done(9)
-    run_bounded_map(torch, dev, failures)
+    p10 = run_bounded_map(torch, dev, failures)
     phase_done(10)
+    chunked = run_chunked_path(torch, dev, p8, failures)
+    del p8
+    phase_done(11)
+    run_chunked_bounded(torch, dev, p10, failures)
+    run_rendered_chunks(torch, dev, failures)
+    phase_done(12)
 
     # launches: the SLAM path's (phase 8); the tracking step's own run
     # (phase 6) is kept beside it
@@ -902,12 +1158,14 @@ def main() -> int:
              source="vslam_tpu_torch/csrc/hamming.cu",
              replaces="vslam_tpu/ops/pallas_hamming.py:50",
              launches=launches["hamming"],
-             launches_track_step=step_launches["hamming"], **k1),
+             launches_track_step=step_launches["hamming"],
+             launches_chunked=chunked["launches"]["hamming"], **k1),
         dict(name="associate", route="cuda",
              source="vslam_tpu_torch/csrc/associate.cu",
              replaces="vslam_tpu/ops/pallas_associate.py:71",
              launches=launches["associate"],
-             launches_track_step=step_launches["associate"], **k2),
+             launches_track_step=step_launches["associate"],
+             launches_chunked=chunked["launches"]["associate"], **k2),
     ]
     for f in failures:
         print("FAIL:", f)
@@ -918,7 +1176,10 @@ def main() -> int:
                       if v[0] is not None)
           + f"; global BA {ms_global:.3f} ms; "
           + ", ".join(f"{k} {v:.3f}" for k, v in ba_ms.items())
-          + f" ({name}; {smi})")
+          + f"; chunked (phase 11) {chunked['ms_frame']:.3f} ms/frame, graph "
+          f"replay {chunked['replay_ms']:.3f} ms (device), capture "
+          f"{chunked['capture_s']:.2f} s, pool peak "
+          f"{chunked['pool_mib']:.1f} MiB ({name}; {smi})")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -239,6 +239,33 @@ def test_evict_and_compact_on_cuda_match_cpu(cuda, min_free):
     assert int(m_c.size) == 4096 - min_free
 
 
+def test_colliding_writes_on_cuda_match_cpu(cuda):
+    """3072 keypoints observing 30 points, and as many position updates:
+    the card keeps the last of the colliding writes, as the CPU and the
+    reference do (``index_put_`` alone picks any one on CUDA, which made
+    two runs of the same frames part ways)."""
+    from vslam_tpu_torch.pipeline import tracker
+    rng = np.random.RandomState(4)
+    m = _random_map(4)
+    n = 3072
+    ids = torch.from_numpy(rng.randint(-1, 30, n).astype(np.int32))
+    desc = torch.from_numpy(rng.randint(-2 ** 31, 2 ** 31, (n, 8),
+                                        dtype=np.int64).astype(np.int32))
+    valid = torch.from_numpy(rng.rand(n) < 0.9)
+    xyz = torch.from_numpy(rng.randn(n, 3).astype(np.float32))
+    conf = torch.from_numpy(rng.rand(n).astype(np.float32))
+    update = tracker.default_map_ops(CFG, W, H).update_xyz
+    outs = []
+    for dev in ("cpu", cuda):
+        m2 = point_map.add_observations(_to(m, dev), ids.to(dev),
+                                        desc.to(dev), valid.to(dev), 7)
+        outs.append(update(m2, ids.to(dev), xyz.to(dev), valid.to(dev),
+                           valid.to(dev), conf.to(dev)))
+    for f in dataclasses.fields(outs[0]):
+        assert torch.equal(getattr(outs[1], f.name).cpu(),
+                           getattr(outs[0], f.name)), f.name
+
+
 def _rodrigues(w):
     th = np.linalg.norm(w)
     k = w / max(th, 1e-12)
@@ -307,3 +334,143 @@ def test_wrappers_check_inputs_on_cuda(cuda):
     args[0] = args[0].double()
     with pytest.raises(ValueError):
         k2.associate_cuda(*args, **point_map.gates(CFG.matching))
+
+
+# ---- the chunked driver: one captured graph per frame ---------------------
+
+def _chunk_scene(n, seed=2):
+    from vslam_tpu_torch.datasets import synthetic
+    scene = synthetic.make_scene(num_points=700, seed=seed,
+                                 extent=(14, 6, 45), z_min=6.0)
+    poses = synthetic.make_trajectory(n, step=0.6, yaw_rate=0.01, seed=seed)
+    return np.stack(synthetic.render_sequence(CFG.camera.K(), poses, scene,
+                                              W, H))
+
+
+def _frame_rows(s):
+    return [r for r in s.metrics.records
+            if r.get("kind") == "frame" and "success" in r]
+
+
+def _corridor_renderer(dev, n=12):
+    """tests/test_scan_driver.py's on-device renderer case: a corridor
+    scene made on ``dev`` and render_frame_device as the chunk's
+    render_fn."""
+    from vslam_tpu_torch.datasets import synthetic, synthetic_device
+    poses = torch.from_numpy(synthetic.make_trajectory(n, step=0.6, seed=3)
+                             .astype(np.float32)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    xyz, patches = synthetic_device.make_corridor_scene_device(gen, poses,
+                                                               1200)
+    Kd = torch.from_numpy(CFG.camera.K()).to(dev)
+    render = lambda pose: synthetic_device.render_frame_device(
+        xyz, patches, Kd, pose, W, H)
+    return poses, render
+
+
+CHUNK_CASES = {
+    # uneven chunks, no BA: boundaries must not matter
+    "uneven-no-ba": (17, False, (7, 5, 5)),
+    # chunks aligned to keyframe_every * local_ba_every, window BA on
+    "ba-aligned": (25, True, (5, 4, 4, 4, 4, 4)),
+    # frames drawn inside the graph by render_frame_device
+    "render-fn": (12, False, (6, 6)),
+}
+
+
+@pytest.mark.parametrize("case", list(CHUNK_CASES))
+def test_chunk_matches_process_on_cuda(cuda, case):
+    """SLAMSystem.process_chunk (captured graph, replayed per frame)
+    against process on the card: equal flags and counters, equal keyframe
+    counts and BA outcomes, poses to 1e-4; each kernel captured once per
+    frame body and replayed once per frame."""
+    from vslam_tpu_torch.pipeline import slam
+    n, ba_on, sizes = CHUNK_CASES[case]
+    render = None
+    if case == "render-fn":
+        inputs, render = _corridor_renderer(cuda, n)
+        frames = torch.stack([render(p) for p in inputs])
+    else:
+        inputs = frames = torch.from_numpy(_chunk_scene(n)).to(cuda)
+    a = slam.SLAMSystem(CFG, cuda, enable_ba=ba_on)
+    for f in frames:
+        a.process(f)
+    b = slam.SLAMSystem(CFG, cuda, enable_ba=ba_on)
+    s0 = 0
+    for k in sizes:
+        b.process_chunk(inputs[s0:s0 + k], render_fn=render)
+        s0 += k
+    assert s0 == n
+    ra, rb = _frame_rows(a), _frame_rows(b)
+    assert len(ra) == len(rb) == n - 1
+    for x, y in zip(ra, rb):
+        # process logs the keyframe decision, the chunk the insert (the
+        # decision and success), as the reference's two drivers do
+        x = dict(x, keyframe=x["keyframe"] and x["success"])
+        for k in y:
+            if k not in ("t", "wall_s", "ran_ba"):
+                assert x[k] == y[k], (x["frame"], k, x[k], y[k])
+    np.testing.assert_allclose(b.poses(), a.poses(), atol=1e-4)
+    assert int(a.kf_store.count) == int(b.kf_store.count)
+    ea = [{k: v for k, v in r.items() if k not in ("t", "frame")}
+          for r in a.metrics.records if r.get("kind") == "ba"]
+    eb = [{k: v for k, v in r.items() if k not in ("t", "frame")}
+          for r in b.metrics.records if r.get("kind") == "ba"]
+    assert [e.get("skipped") for e in ea] == [e.get("skipped") for e in eb]
+    assert ([e["ba_result_accepted"] for e in ea]
+            == [e["ba_result_accepted"] for e in eb])
+    if ba_on:
+        assert ea, "premise: a BA event"
+    else:
+        assert sum(r["success"] for r in rb) >= n - 3
+    g = b.chunk_graphs[render]
+    assert g.captured_launches == {"hamming": 1, "associate": 1}
+    assert g.replays == n - 1
+
+
+def test_render_frame_device_on_cuda_matches_cpu(cuda):
+    """render_frame_device on the card against its CPU run on the same
+    arrays, with the CPU tests' tolerances against the reference: the
+    no-overlap scene of tests/test_loaders.py to 2e-5 on every pixel; a
+    corridor of 3000 landmarks (overlapping splats) to 2e-5 on >= 99.9% of
+    the pixels of every frame (the projection's matmul rounds differently
+    on the card, which moves a splat's subpixel phase by an ulp)."""
+    from vslam_tpu_torch.datasets import synthetic, synthetic_device
+    Kg = torch.tensor([[200.0, 0, 128], [0, 200.0, 96], [0, 0, 1]])
+    gx, gy = np.meshgrid(np.linspace(-4, 4, 4), np.linspace(-2.5, 2.5, 3))
+    grid = torch.from_numpy(np.stack([gx.ravel(), gy.ravel(),
+                                      np.full(12, 20.0)], axis=1)
+                            .astype(np.float32))
+    gp = torch.from_numpy(synthetic.make_scene(num_points=12, seed=5).patches)
+    gposes = torch.from_numpy(synthetic.make_trajectory(3, step=0.5, seed=5)
+                              .astype(np.float32))
+    poses, _ = _corridor_renderer("cpu")
+    xyz, patches = synthetic_device.make_corridor_scene_device(
+        torch.Generator().manual_seed(5), poses, 3000)
+    Kc = torch.from_numpy(CFG.camera.K())
+    for x, p, Km, ps, w, h, need in ((grid, gp, Kg, gposes, 256, 192, 1.0),
+                                     (xyz, patches, Kc, poses, W, H, 0.999)):
+        for pose in ps:
+            want = synthetic_device.render_frame_device(x, p, Km, pose, w, h)
+            got = synthetic_device.render_frame_device(
+                x.to(cuda), p.to(cuda), Km.to(cuda), pose.to(cuda), w, h)
+            close = ((got.cpu() - want).abs() <= 2e-5).float().mean()
+            assert float(close) >= need, float(close)
+            assert float((want != 0.35).float().mean()) > 0.01  # premise
+
+
+def test_chunk_capture_failure_raises(cuda):
+    """A frame body that reads a value back to the host cannot be
+    captured: process_chunk raises and never runs the frames eagerly, and
+    the system's state is left as it was."""
+    from vslam_tpu_torch.pipeline import slam
+    poses, render = _corridor_renderer(cuda, 6)
+    syncing = lambda pose: render(pose) * float(pose[3, 3])
+    s = slam.SLAMSystem(CFG, cuda, enable_ba=False)
+    s.process_chunk(poses[:1], render_fn=syncing)        # bootstrap only
+    before = s.state.pose.clone()
+    with pytest.raises(RuntimeError):
+        s.process_chunk(poses[1:], render_fn=syncing)
+    assert s.frame_idx == 1 and len(_frame_rows(s)) == 0
+    assert torch.equal(s.state.pose, before)
+    assert s.chunk_graphs[syncing].graph is None

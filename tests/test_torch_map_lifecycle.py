@@ -4,6 +4,8 @@ The same numpy-seeded map goes through the reference and the port, with
 ``last_seen`` drawn from a handful of frames so that eviction order rests
 on ties (the reference breaks them by slot index). Every output is
 integer or a moved copy of a payload row, so every comparison is exact.
+The last test runs maintenance inside ``process_chunk`` against the
+reference's per-frame driver.
 """
 import jax
 import jax.numpy as jnp
@@ -126,3 +128,49 @@ def test_churn_inserts_survive_past_capacity():
             m, _ = point_map.compact(m)
     assert total_inserted == 1024
     assert int(m.size) <= C
+
+
+@pytest.mark.parametrize("n_obs", [40, 3072])
+def test_colliding_observations_keep_the_last(n_obs):
+    """Many keypoints observing few points: of the colliding descriptor
+    writes the last one stays, as in the reference's scatter
+    (``index_put_`` alone leaves the winner unspecified on CUDA;
+    tests/test_torch_gpu.py holds the card to this CPU result)."""
+    rng = np.random.RandomState(n_obs)
+    ref = _ref_map(3)
+    ids = rng.randint(-1, 30, n_obs).astype(np.int32)
+    desc = rng.randint(0, 2 ** 32, (n_obs, 8), dtype=np.uint64) \
+        .astype(np.uint32)
+    valid = rng.rand(n_obs) < 0.9
+    want = jpm.add_observations(ref, jnp.asarray(ids), jnp.asarray(desc),
+                                jnp.asarray(valid), frame_idx=7)
+    got = point_map.add_observations(
+        interop.from_jax(_np_tree(ref), MapState), torch.from_numpy(ids),
+        torch.from_numpy(desc.view(np.int32)), torch.from_numpy(valid),
+        frame_idx=7)
+    _assert_map_equal(got, want)
+
+
+def test_chunk_maintenance_matches_reference():
+    """The port's ``process_chunk`` at capacity 512 (high-water 256), with
+    the reference's RANSAC samples injected, against the reference's
+    per-frame ``process``: maintenance runs inside the chunks at the frames
+    where the reference runs it, no insert is dropped, decisions are equal,
+    inlier counts and map sizes within +-2, poses to 1e-3."""
+    from tests import test_torch_scan_driver as chunk
+    from vslam_tpu.config import MapConfig as JMapConfig
+    from vslam_tpu.config import small_config as jsmall
+    from vslam_tpu.pipeline import slam as jslam
+    from vslam_tpu_torch.config import MapConfig
+
+    frames = chunk._scene(24)
+    ref = jslam.SLAMSystem(jsmall().replace(map=JMapConfig(
+        capacity=512, obs_per_point=4, block_size=32)), enable_ba=False)
+    for f in frames:
+        ref.process(f)
+    port = chunk._injected_chunk(chunk.CFG.replace(map=MapConfig(
+        capacity=512, obs_per_point=4, block_size=32)), frames,
+        (9, 8, 7), False)
+    chunk.assert_chunk_matches_reference(ref, port)
+    assert port["maintenance_runs"] == ref.maintenance_runs >= 2  # premise
+    assert port["dropped"] == ref.dropped_inserts_total == 0

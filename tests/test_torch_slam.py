@@ -12,7 +12,8 @@ tolerance (tests/test_torch_tracker.py). After it, to 5e-3: the event's
 write-back re-anchors the pose chain by a correction computed from an LM
 solve whose last digits differ (the port's solver agrees to ~1e-5 per
 pose, tests/test_torch_ba.py), and tracking carries that difference on.
-The keyframe ATEs agree to 0.01.
+The keyframe ATEs agree to 0.01. The chunked driver (``process_chunk``)
+is held to the same reference run with the same tolerances.
 
 ``structure_every=2`` runs the structure-only refinement and its write-
 back on the system path; promoted counts are equal and costs agree to
@@ -256,6 +257,21 @@ def test_ba_event_trust_region(move, ok):
         assert abs(max_move - 0.6) < 1e-5 and baseline == 1.0
 
 
-def test_process_chunk_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        slam.SLAMSystem(CFG, "cpu").process_chunk(np.zeros((2, H, W)))
+# ---- the chunked driver against the reference's per-frame driver ---------
+
+def test_chunk_matches_reference_per_frame(parity):
+    """The port's ``process_chunk`` with the reference's RANSAC samples
+    injected, in chunks aligned to keyframe_every * local_ba_every, against
+    the reference's per-frame run of ``parity``: the same decisions and BA
+    events, inlier counts and map sizes within +-2, poses to 1e-3 up to the
+    first accepted BA event and 5e-3 after (tests/test_torch_scan_driver.py
+    holds the chunk to the port's own per-frame driver exactly)."""
+    from tests import test_torch_scan_driver as chunk
+
+    ref = parity[0]
+    frames, _ = _frames(24)
+    align = CFG.pipeline.keyframe_every * CFG.pipeline.local_ba_every
+    port = chunk._injected_chunk(CFG, frames, (align + 1,) + (align,) * 4
+                                 + (3,), True)
+    chunk.assert_chunk_matches_reference(ref, port)
+    assert any(e["ba_result_accepted"] for e in port["ba"])      # premise

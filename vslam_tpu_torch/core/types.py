@@ -123,3 +123,16 @@ def scatter_drop(base, idx, values, accumulate: bool = False):
     buf.index_put_((idx,), values.to(base.dtype).expand(
         (idx.shape[0],) + tuple(base.shape[1:])), accumulate=accumulate)
     return buf[:-1]
+
+
+def last_writes(idx, dump: int):
+    """``idx`` with every write but the last to each target sent to
+    ``dump``. Of colliding writes, ``index_put_`` keeps an unspecified one
+    on CUDA (and on the CPU once it runs in parallel); the reference's
+    scatter keeps the last, and so does ``scatter_drop`` of the result."""
+    order = torch.sort(idx, stable=True).indices
+    s = idx[order]
+    last = torch.ones_like(s, dtype=torch.bool)
+    last[:-1] = s[1:] != s[:-1]
+    keep = torch.empty_like(last).scatter_(0, order, last)
+    return torch.where(keep, idx, dump)

@@ -32,8 +32,9 @@ def from_jax(tree, cls, device="cpu"):
 
     ``tree`` is the reference dataclass (numpy leaves) or a dict with the
     same field names. A ``key`` field (the reference's PRNG key) becomes a
-    ``torch.Generator`` seeded from the key's words (seed 0 when absent, as
-    in ``to_numpy``'s output): the two frameworks' random streams differ by
+    ``torch.Generator`` seeded from the key's words, high word first as
+    ``jax.random.PRNGKey(seed)`` lays them out (seed 0 when absent, as in
+    ``to_numpy``'s output): the two frameworks' random streams differ by
     construction, so only determinism carries.
     """
     get = tree.get if isinstance(tree, dict) else \
@@ -47,7 +48,9 @@ def from_jax(tree, cls, device="cpu"):
             kw[f.name] = from_jax(v, sub, device)
         elif f.name == "key":
             words = [] if v is None else np.asarray(v).reshape(-1).tolist()
-            seed = sum(int(w) << (32 * i) for i, w in enumerate(words))
+            seed = 0
+            for w in words:
+                seed = (seed << 32) | int(w)
             kw[f.name] = torch.Generator(device=device).manual_seed(seed)
         else:
             kw[f.name] = _leaf_to_torch(v, device)

@@ -20,7 +20,7 @@ import torch
 
 from ..config import MapConfig, MatchingConfig
 from ..core import types
-from ..core.types import MapState, scatter_drop
+from ..core.types import MapState, last_writes, scatter_drop
 from ..ops import associate as k2
 
 
@@ -76,8 +76,9 @@ def add_observations(m: MapState, point_ids, desc, valid,
     slot = torch.where(ok, cnt % K, 0)
     frame = torch.as_tensor(frame_idx, dtype=torch.int32,
                             device=point_ids.device)
+    # two keypoints may observe one point: the later one's descriptor wins
     return m.replace(
-        desc=scatter_drop(m.desc, pid * K + slot, desc),
+        desc=scatter_drop(m.desc, last_writes(pid * K + slot, C * K), desc),
         desc_count=scatter_drop(m.desc_count, pid, ok.to(torch.int32),
                                 accumulate=True),
         last_seen=scatter_drop(m.last_seen, pid, frame),

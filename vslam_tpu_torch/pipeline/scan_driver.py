@@ -1,0 +1,304 @@
+"""Chunked frame loop: T tracking steps with the keyframe decision, the
+keyframe-ring insert and map maintenance made on the device.
+
+Port of ``vslam_tpu/pipeline/scan_driver.py``. The reference runs the chunk
+as one ``lax.scan`` program and branches with ``lax.cond``; here
+``frame_body`` is a plain function on tensors that computes both sides of
+each branch and selects per field with ``torch.where``, so it has no
+host-dependent control flow:
+
+  * the step, ``tracker._step_impl`` with ``default_map_ops``;
+  * the keyframe decision ``(frame_idx % keyframe_every == 0) |
+    (inliers / max(matches, 1) < min_ratio)`` on the tracker's pre-step
+    ``frame_idx`` (the per-frame driver's own frame counter);
+  * ``do_insert = is_keyframe & success``, then the ring insert;
+  * maintenance (LRU evict + compact + id remap) when the map's insert
+    cursor reaches ``high_water``; it is computed on every frame and kept
+    only where the trigger fired.
+
+On a CPU device ``run_chunk`` is a Python loop over ``frame_body``. On a
+CUDA device it is ``ChunkGraph``: the body captured once as a CUDA graph on
+static buffers (one copy of the tracker state, one of the keyframe store,
+one input slot, one scalars slot) and replayed once per frame, with the
+state copied in before the chunk and out after it, so window BA and
+``SLAMSystem.process`` may run eagerly between chunks. There is no eager
+fallback on the card: a capture or replay that fails raises.
+
+Per frame only scalars leave the body: ``pack`` lays them out as one
+float64 row (float64 holds every f32 and every count exactly), and the
+caller fetches all rows of a chunk in one transfer.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..config import VSLAMConfig
+from ..mapping import point_map
+from ..ops import associate as k2
+from ..ops import hamming as k1
+from . import keyframes as kf_mod
+from . import tracker
+
+
+class ChunkScalars(NamedTuple):
+    """Per-frame scalar outputs of one chunk (everything the per-frame
+    driver logs, minus the per-match annotation arrays)."""
+    pose: np.ndarray               # (T, 4, 4)
+    num_matches: np.ndarray        # (T,)
+    num_inliers: np.ndarray
+    num_associated: np.ndarray
+    num_tracked_map: np.ndarray
+    num_tracked_prov: np.ndarray
+    num_pnp_inliers: np.ndarray
+    num_refined: np.ndarray
+    num_promoted: np.ndarray
+    num_new_points: np.ndarray
+    num_dropped_inserts: np.ndarray
+    map_size: np.ndarray
+    map_alive: np.ndarray
+    scale: np.ndarray
+    success: np.ndarray
+    is_keyframe: np.ndarray
+    ran_maintenance: np.ndarray
+
+    @classmethod
+    def unpack(cls, rows: np.ndarray) -> "ChunkScalars":
+        """(T, ROW) float64 rows (``pack``'s layout) -> host arrays with
+        the reference's types: f32 pose and scale, int counts, bool flags."""
+        rows = np.asarray(rows)
+        cols = rows[:, 16:].T
+        counts = [c.astype(np.int64) for c in cols[:12]]
+        return cls(rows[:, :16].reshape(-1, 4, 4).astype(np.float32),
+                   *counts, cols[12].astype(np.float32),
+                   *(c > 0.5 for c in cols[13:]))
+
+
+ROW = 16 + len(ChunkScalars._fields) - 1     # pose words + one per scalar
+
+
+def pack(out: tracker.TrackOutput, is_keyframe, ran_maintenance):
+    """One frame's ChunkScalars as a (ROW,) float64 vector."""
+    names = ChunkScalars._fields[1:-2]
+    return torch.cat([
+        out.pose.reshape(16).to(torch.float64),
+        torch.stack([getattr(out, k).reshape(()).to(torch.float64)
+                     for k in names]
+                    + [is_keyframe.to(torch.float64),
+                       ran_maintenance.to(torch.float64)])])
+
+
+def _maintenance(m, prev_map_id, obs_pid, min_free: int):
+    """Evict LRU landmarks until >= min_free slots are reclaimable, compact
+    the map, and remap every id holder (tracker + keyframe observations);
+    both drivers' maintenance."""
+    m = point_map.evict_lru(m, min_free)
+    m2, remap = point_map.compact(m)
+    return (m2, point_map.remap_ids(prev_map_id, remap),
+            point_map.remap_ids(obs_pid, remap))
+
+
+def _fields(obj):
+    return [(f.name, getattr(obj, f.name)) for f in dataclasses.fields(obj)]
+
+
+def _map(fn, obj):
+    """``fn`` on every tensor of a dataclass of tensors (nested dataclasses
+    recursed into; anything else, such as the generator, kept)."""
+    return type(obj)(**{
+        k: _map(fn, v) if dataclasses.is_dataclass(v)
+        else fn(v) if isinstance(v, torch.Tensor) else v
+        for k, v in _fields(obj)})
+
+
+def _select(cond, a, b):
+    """Per tensor field ``torch.where(cond, a, b)`` (0-d ``cond``)."""
+    return type(a)(**{
+        k: _select(cond, v, getattr(b, k)) if dataclasses.is_dataclass(v)
+        else torch.where(cond, v, getattr(b, k))
+        if isinstance(v, torch.Tensor) else v
+        for k, v in _fields(a)})
+
+
+def _copy_into(dst, src):
+    """Copy every tensor of ``src`` into the same field of ``dst``."""
+    for k, v in _fields(dst):
+        if dataclasses.is_dataclass(v):
+            _copy_into(v, getattr(src, k))
+        elif isinstance(v, torch.Tensor):
+            v.copy_(getattr(src, k))
+
+
+def frame_body(st: tracker.TrackerState, sr: kf_mod.KeyframeStore, x,
+               cfg: VSLAMConfig, high_water: int, min_free: int,
+               render_fn=None):
+    """One frame of a chunk. ``x`` is the (H, W) image, or the renderer's
+    input when ``render_fn`` is given. Returns (state, store, row), ``row``
+    the frame's ``pack``ed scalars."""
+    img = render_fn(x) if render_fn is not None else x
+    frame_no = st.frame_idx
+    st2, out = tracker._step_impl(st, img, cfg, tracker.default_map_ops(
+        cfg, cfg.camera.width, cfg.camera.height))
+
+    # keyframe decision (the per-frame driver's, on the device): the flag
+    # matches that driver's log; insertion additionally requires success
+    ratio = out.num_inliers.to(torch.float32) / torch.clamp(
+        out.num_matches.to(torch.float32), min=1.0)
+    is_kf = ((frame_no % cfg.pipeline.keyframe_every == 0)
+             | (ratio < cfg.pipeline.keyframe_min_inlier_ratio))
+    do_insert = is_kf & out.success
+    sr2 = _select(do_insert, kf_mod.insert_keyframe(
+        sr, st2.pose, frame_no, st2.prev.uv, st2.prev_map_id,
+        st2.prev.mask), sr)
+
+    # map maintenance at the high-water mark (the per-frame driver's
+    # trigger)
+    need = st2.map.size >= high_water
+    m2, pid2, obs2 = _maintenance(st2.map, st2.prev_map_id, sr2.obs_pid,
+                                  min_free)
+    st3 = st2.replace(map=_select(need, m2, st2.map),
+                      prev_map_id=torch.where(need, pid2, st2.prev_map_id))
+    sr3 = sr2.replace(
+        obs_pid=torch.where(need, obs2, sr2.obs_pid),
+        obs_mask=torch.where(need, sr2.obs_mask & (obs2 >= 0), sr2.obs_mask))
+    return st3, sr3, pack(out, do_insert, need)
+
+
+class ChunkGraph:
+    """``frame_body`` captured once as a CUDA graph, replayed per frame.
+
+    The first ``run`` warms the body up eagerly on a side stream (constant
+    uploads, the kernels' build and K2's grid query, library handles: host
+    work that is illegal inside a capture) with a throwaway copy of the
+    RANSAC generator, then captures it on static buffers. Inside the
+    capture the new state is written back into the static buffers with
+    ``copy_``, and the RANSAC generator is registered with the graph, so
+    each replay draws what the eager step would draw next.
+
+    Python launch counters count the capture, not the replays:
+    ``captured_launches`` holds each kernel's launches in one frame body
+    and ``replays`` the frames run, so a run launched each kernel
+    ``captured_launches[k] * replays`` times. ``capture_s`` (warm-up and
+    capture, host clock) and ``pool_peak_bytes`` (the graph pool's peak
+    allocation during capture) are kept for the record.
+    """
+
+    def __init__(self, cfg: VSLAMConfig, high_water: int, min_free: int,
+                 render_fn=None):
+        self.cfg = cfg
+        self.high_water = high_water
+        self.min_free = min_free
+        self.render_fn = render_fn
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.captured_launches: dict = {}
+        self.replays = 0
+        self.capture_s: Optional[float] = None
+        self.pool_peak_bytes: Optional[int] = None
+
+    def _body(self, st, sr, x):
+        return frame_body(st, sr, x, self.cfg, self.high_water,
+                          self.min_free, self.render_fn)
+
+    def _capture(self, state, store, x):
+        dev = x.device
+        t0 = time.perf_counter()
+        scratch = torch.Generator(device=dev)
+        scratch.set_state(state.key.get_state())
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._body(state.replace(key=scratch), store, x)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+
+        self.gen = torch.Generator(device=dev)
+        self.state = _map(torch.clone, state).replace(key=self.gen)
+        self.store = _map(torch.clone, store)
+        self.slot = torch.empty_like(x)
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.gen)
+        before = (k1.launches, k2.launches)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        with torch.cuda.graph(graph):
+            st, sr, row = self._body(self.state, self.store, self.slot)
+            _copy_into(self.state, st)
+            _copy_into(self.store, sr)
+        torch.cuda.synchronize(dev)
+        self.row = row
+        self.pool_peak_bytes = torch.cuda.max_memory_allocated(dev) - base
+        self.captured_launches = {"hamming": k1.launches - before[0],
+                                  "associate": k2.launches - before[1]}
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self, state, store, frames):
+        """Track ``frames`` (T, ...) on the card. Returns (state, store,
+        rows): new state and store (copies, not the static buffers) and
+        the (T, ROW) float64 rows, still on the device. The replay loop
+        runs with ``set_sync_debug_mode("error")``: a host sync inside it
+        raises."""
+        dev = frames.device
+        with torch.cuda.device(dev):
+            if self.graph is None:
+                self._capture(state, store, frames[0])
+            elif frames.shape[1:] != self.slot.shape:
+                raise ValueError(f"frames {tuple(frames.shape[1:])} do not "
+                                 f"fit the captured slot "
+                                 f"{tuple(self.slot.shape)}")
+            _copy_into(self.state, state)
+            _copy_into(self.store, store)
+            self.gen.set_state(state.key.get_state())
+            rows = torch.empty((frames.shape[0], ROW), dtype=torch.float64,
+                               device=dev)
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for t in range(frames.shape[0]):
+                    self.slot.copy_(frames[t])
+                    self.graph.replay()
+                    rows[t].copy_(self.row)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            self.replays += frames.shape[0]
+            state.key.set_state(self.gen.get_state())
+            return (_map(torch.clone, self.state).replace(key=state.key),
+                    _map(torch.clone, self.store), rows)
+
+
+def run_chunk(state: tracker.TrackerState, store: kf_mod.KeyframeStore,
+              frames, cfg: VSLAMConfig, high_water: int, min_free: int,
+              render_fn=None, graph: Optional[ChunkGraph] = None):
+    """Track a chunk of frames.
+
+    Args:
+      state / store: tracker state and keyframe ring, on one device.
+      frames: (T, H, W) stacked images on that device, or with
+        ``render_fn`` the (T, ...) per-frame renderer inputs (e.g. (T, 4, 4)
+        poses for ``datasets.synthetic_device.render_frame_device``).
+      render_fn: optional callable mapping one row of ``frames`` to an
+        (H, W) image on the device.
+      high_water / min_free: maintenance trigger and target, as in
+        ``SLAMSystem``.
+      graph: on CUDA, the ``ChunkGraph`` to replay (captured on its first
+        run); a new one when None. Ignored on the CPU.
+    Returns (state, store, rows), ``rows`` (T, ROW) float64 on the device
+    (``ChunkScalars.unpack`` of its host copy gives the named fields).
+    """
+    dev = state.pose.device
+    if dev.type == "cuda":
+        if graph is None:
+            graph = ChunkGraph(cfg, high_water, min_free, render_fn)
+        return graph.run(state, store, frames)
+    if dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    rows = []
+    for t in range(frames.shape[0]):
+        state, store, row = frame_body(state, store, frames[t], cfg,
+                                       high_water, min_free, render_fn)
+        rows.append(row)
+    return state, store, torch.stack(rows)

@@ -4,7 +4,9 @@ Port of ``vslam_tpu/pipeline/slam.py`` without a mesh. The host loop moves
 images in and scalars out: each ordinary frame (neither a keyframe nor a
 BA frame) costs one device-to-host transfer, the packed pose and counters
 of the step; a BA attempt adds one more for its gate statistics before
-deciding whether to solve. The window-BA guards are host-side numpy on the
+deciding whether to solve. ``process_chunk`` runs T frames through the
+chunked driver (``scan_driver``) with one transfer per chunk; on CUDA the
+frame body is a captured graph. The window-BA guards are host-side numpy on the
 solved window, as in the reference, and what they write back re-enters as
 float32 on the system's device. The reference's comments give the
 measurements behind every guard and constant; this file keeps the what.
@@ -23,7 +25,7 @@ from ..core.types import PT_COLOR
 from ..mapping import point_map
 from ..optimizer import ba
 from ..utils.metrics import MetricsLogger
-from . import keyframes, tracker
+from . import keyframes, scan_driver, tracker
 
 # TrackOutput scalars fetched with the pose in one transfer per frame
 _SCALARS = ("num_matches", "num_inliers", "num_associated",
@@ -64,20 +66,12 @@ def _window_gate_stats(problem: ba.BAProblem, sel_prov):
     return n_obs_free, n_free, deep_obs, solid_obs
 
 
-def _map_maintenance(m, prev_map_id, obs_pid, min_free: int):
-    """Evict LRU landmarks until >= min_free slots are reclaimable, compact
-    the map, and remap every id holder (tracker + keyframe observations)."""
-    m = point_map.evict_lru(m, min_free)
-    m2, remap = point_map.compact(m)
-    return (m2, point_map.remap_ids(prev_map_id, remap),
-            point_map.remap_ids(obs_pid, remap))
-
-
 class SLAMSystem:
     """Monocular SLAM over a frame stream, on one device."""
 
-    def __init__(self, cfg: VSLAMConfig, device, metrics_path: Optional[str]
-                 = None, seed: int = 0, enable_ba: bool = True):
+    def __init__(self, cfg: VSLAMConfig, device="cuda",
+                 metrics_path: Optional[str] = None, seed: int = 0,
+                 enable_ba: bool = True):
         self.cfg = cfg
         self.device = torch.device(device)
         self.metrics = MetricsLogger(metrics_path)
@@ -105,6 +99,8 @@ class SLAMSystem:
         self._maint_min_free = max(cap // 8, headroom + max(cap // 16, 1))
         self.dropped_inserts_total = 0
         self.maintenance_runs = 0
+        # process_chunk's captured frame bodies on CUDA, by render_fn
+        self.chunk_graphs: Dict = {}
 
     # ------------------------------------------------------------------
     def process(self, img) -> Dict:
@@ -162,7 +158,7 @@ class SLAMSystem:
         self.dropped_inserts_total += counts["num_dropped_inserts"]
         ran_maintenance = False
         if counts["map_size"] >= self._maint_high_water:
-            m2, pid2, obs2 = _map_maintenance(
+            m2, pid2, obs2 = scan_driver._maintenance(
                 self.state.map, self.state.prev_map_id,
                 self.kf_store.obs_pid, self._maint_min_free)
             self.state = self.state.replace(map=m2, prev_map_id=pid2)
@@ -184,11 +180,81 @@ class SLAMSystem:
         return info
 
     def process_chunk(self, inputs, render_fn=None) -> Dict:
-        """Not ported yet: the chunked path (CUDA-graph capture of T
-        steps) is ROADMAP queue 1 item 10. Use ``process`` per frame."""
-        raise NotImplementedError(
-            "SLAMSystem.process_chunk: the chunked path is ROADMAP queue 1 "
-            "item 10; call process() per frame")
+        """Feed T frames through the chunked driver (``scan_driver``):
+        tracking, the keyframe decisions and ring inserts, and map
+        maintenance run on the device; per-frame scalars come back to the
+        host in one transfer per chunk. On CUDA the frame body is one
+        captured graph, replayed once per frame.
+
+        ``inputs``: (T, H, W) stacked frames, or with ``render_fn`` the
+        (T, ...) renderer inputs (e.g. (T, 4, 4) poses for
+        ``datasets.synthetic_device.render_frame_device``); numpy or a
+        tensor (one upload per chunk unless already on the device).
+
+        Window BA fires at chunk boundaries; with the chunk length aligned
+        to keyframe_every * local_ba_every its events land on the frames
+        the per-frame driver picks. Structure refinement
+        (``structure_every``) does not run here, as in the reference.
+        """
+        t0 = time.perf_counter()
+        if not isinstance(inputs, torch.Tensor):
+            inputs = np.asarray(inputs, np.float32)
+        inputs = torch.as_tensor(inputs, dtype=torch.float32,
+                                 device=self.device)
+        if self.state is None:
+            first = render_fn(inputs[0]) if render_fn is not None \
+                else inputs[0]
+            self.state = tracker.bootstrap(first, self.cfg, self.device,
+                                           seed=self._seed)
+            self.trajectory.append(np.eye(4, dtype=np.float32))
+            self.metrics.log(kind="frame", frame=0, bootstrap=True,
+                             wall_s=time.perf_counter() - t0)
+            self.frame_idx = 1
+            inputs = inputs[1:]
+            if inputs.shape[0] == 0:
+                return {"frames": 1}
+
+        graph = None
+        if self.device.type == "cuda":
+            graph = self.chunk_graphs.get(render_fn)
+            if graph is None:
+                graph = self.chunk_graphs[render_fn] = scan_driver.ChunkGraph(
+                    self.cfg, self._maint_high_water, self._maint_min_free,
+                    render_fn)
+        fresh = graph is not None and graph.graph is None
+        t1 = time.perf_counter()
+        self.state, self.kf_store, rows = scan_driver.run_chunk(
+            self.state, self.kf_store, inputs, self.cfg,
+            self._maint_high_water, self._maint_min_free,
+            render_fn=render_fn, graph=graph)
+        capture_s = graph.capture_s if fresh else 0.0
+        sc = scan_driver.ChunkScalars.unpack(_np(rows))  # one transfer
+        # tracking time: the frames' steps through the rows' arrival on
+        # the host (the fetch synchronizes), without a capture
+        track_s = time.perf_counter() - t1 - capture_s
+        T = sc.pose.shape[0]
+        counts = scan_driver.ChunkScalars._fields[1:13]
+        for i in range(T):
+            self.trajectory.append(sc.pose[i])
+            self.metrics.log(
+                kind="frame", frame=self.frame_idx,
+                **{k: int(getattr(sc, k)[i]) for k in counts},
+                scale=float(sc.scale[i]), success=bool(sc.success[i]),
+                keyframe=bool(sc.is_keyframe[i]), ran_ba=False,
+                ran_maintenance=bool(sc.ran_maintenance[i]))
+            self.frame_idx += 1
+        self.dropped_inserts_total += int(sc.num_dropped_inserts.sum())
+        self.maintenance_runs += int(sc.ran_maintenance.sum())
+        kf_before = self._kf_count
+        self._kf_count += int(sc.is_keyframe.sum())
+        every = self.cfg.pipeline.local_ba_every
+        ran_ba = False
+        if (self.enable_ba and self._kf_count >= 3
+                and self._kf_count // every > max(kf_before, 2) // every):
+            ran_ba = True
+            self._run_window_ba()
+        return {"frames": T, "ran_ba": ran_ba, "track_s": track_s,
+                "capture_s": capture_s, "wall_s": time.perf_counter() - t0}
 
     # ------------------------------------------------------------------
     @staticmethod

@@ -27,7 +27,7 @@ from ..core import lie
 from ..core.types import (FrameFeatures, MapState, PT_CONF, PT_FIRST_C,
                           PT_FIRST_P, PT_FIRST_UV, PT_XYZ, Replace,
                           device_constant, empty_features, empty_map,
-                          scatter_drop)
+                          last_writes, scatter_drop)
 from ..frontend.frame import extract_features
 from ..geometry import pnp, ransac, triangulation
 from ..mapping import point_map
@@ -95,7 +95,8 @@ def _cos_rad(deg: float) -> float:
     return float(np.cos(np.deg2rad(np.float32(deg))))
 
 
-def init_state(cfg: VSLAMConfig, device, seed: int = 0) -> TrackerState:
+def init_state(cfg: VSLAMConfig, device="cuda",
+               seed: int = 0) -> TrackerState:
     n = cfg.frontend.max_keypoints
     f32 = dict(dtype=torch.float32, device=device)
     return TrackerState(
@@ -144,7 +145,8 @@ def _masked_medians(cols, masks, fallbacks):
     return torch.where(n > 0, med, fallbacks)
 
 
-def bootstrap(img, cfg: VSLAMConfig, device, seed: int = 0) -> TrackerState:
+def bootstrap(img, cfg: VSLAMConfig, device="cuda",
+              seed: int = 0) -> TrackerState:
     """Initialize from the first frame: every keypoint opens a
     delayed-triangulation track."""
     H, W = cfg.camera.height, cfg.camera.width
@@ -189,7 +191,7 @@ def default_map_ops(cfg: VSLAMConfig, W: int, H: int) -> MapOps:
         pdst = torch.where(promote, ids, C).long()
         rows = torch.cat([xyz, conf[:, None], _rows(m, dst)[:, 4:]], dim=1)
         return m.replace(
-            pt=scatter_drop(m.pt, dst, rows),
+            pt=scatter_drop(m.pt, last_writes(dst, C), rows),
             prov=scatter_drop(m.prov, pdst,
                               torch.zeros((), dtype=torch.bool,
                                           device=xyz.device)))
@@ -441,7 +443,7 @@ def _step_impl(state: TrackerState, img, cfg: VSLAMConfig, ops: MapOps,
     new_map = ops.cull(new_map, state.frame_idx)
 
     # newly inserted points: give their keypoints the new map ids
-    offs = torch.cumsum(insert.to(torch.int32), 0) - 1
+    offs = torch.cumsum(insert, 0, dtype=torch.int32) - 1
     new_ids = torch.where(insert, state.map.size + offs, -1)
     new_ids = torch.where(new_ids < GC, new_ids, -1)
     map_id2 = torch.where(insert & (new_ids >= 0), new_ids, map_id2)
