@@ -53,12 +53,23 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
  12. maintenance and rendering inside the graph: phase 10's run through
      chunks (maintenance at phase 10's frames, no drops), 12 frames drawn
      by ``render_frame_device`` inside the graph (>= 9 of 11 tracked), and
-     the renderer on the card against its CPU run.
+     the renderer on the card against its CPU run;
+ 13. the front-end variants at full width (the default config with
+     ``oriented`` and ``track_carry`` on) on phase 8's frames:
+     ``detect_with_carry``, ``orientation_map`` and steered ``describe``
+     on the card against the CPU (masks equal, angles to 1e-5 rad where
+     the moment is not tiny, descriptor bits equal except at detected
+     rounding ties, whose count it prints); ``process`` over the 31
+     frames held as phase 8 is; ``process_chunk`` over them held to that
+     run frame by frame as phase 11 holds phase 8 (0 syncs in the replay
+     loop); ``ops.bench_kernels``' Hamming formulations equal to K1 on
+     the card.
 
 Each phase prints its seconds. The line before the last but one is one
 JSON object per kernel (route, source, the TPU kernel it replaces, launches
-on the main path of phase 8, on the tracking step of phase 6 and in phase
-11's chunks (captured launches times replays), max |error|
+on the main path of phase 8, on the tracking step of phase 6, in phase
+11's chunks (captured launches times replays) and in phase 13's two runs,
+max |error|
 vs the plain version, kernel, plain and library times, and the bound with
 what bounds it); then the nvidia-smi line; the
 last line is ``{"ok": true, "device": {...}}``. No GPU: exits 2 and prints
@@ -287,6 +298,19 @@ def k2_inputs(torch, dev, cfg, n_map=51200, seed=1):
 K2_SIZES = (51200, 120000)
 
 
+def _scenes():
+    """tests/torch_scenes.py (numpy only): the tests' adversarial scenes and
+    the steered-BRIEF tie detector."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "tests" / "torch_scenes.py"
+    spec = importlib.util.spec_from_file_location("torch_scenes", path)
+    scenes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(scenes)
+    return scenes
+
+
 def check_k2_flood(torch, dev, cfg, failures):
     """Phase 4, K2's queues: tests/torch_scenes.py's flood at capacity
     131072 (120000 points and 1000 keypoints in one 4 px disk, every pair
@@ -295,16 +319,10 @@ def check_k2_flood(torch, dev, cfg, failures):
     brings more pairs than a warp's candidate list holds, so both drain
     mid-sweep. Exact against the plain version, with hits in both tiers.
     Returns max |kernel - plain| of the packed keys."""
-    import importlib.util
-    from pathlib import Path
-
     from vslam_tpu_torch.mapping import point_map
     from vslam_tpu_torch.ops import associate as k2
 
-    path = Path(__file__).resolve().parent / "tests" / "torch_scenes.py"
-    spec = importlib.util.spec_from_file_location("torch_scenes", path)
-    scenes = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(scenes)
+    scenes = _scenes()
     geo = k2.geometry(dev)
     C, size, n_kp = cfg.map.capacity, 120000, 1000
     rows = size * -(-n_kp // geo["tile"]) / geo["blocks"]
@@ -622,39 +640,19 @@ def check_lifecycle(torch, dev, m, failures):
         failures.append("lifecycle: the second min_free evicted nothing")
 
 
-def run_slam_path(torch, dev, failures):
-    """Phase 8, the slice's main path: ``SLAMSystem.process`` of the default
-    config on bench.py's scene, 31 frames at 1 m steps (keyframes every 5th
-    frame; the window-BA attempt at keyframe 5, frame 25), then
-    ``run_global_ba``. Launch counters reset just before, read just after.
-    Each ``process`` runs under ``set_sync_debug_mode("warn")`` and its
-    host syncs are counted; the host clock per frame is taken between two
-    ``synchronize()``."""
-    from vslam_tpu_torch.config import VSLAMConfig
-    from vslam_tpu_torch.core.types import empty_map
+def _process_run(torch, s, frames, gt, label, failures):
+    """``s.process`` over ``frames``, launch counters reset just before and
+    read just after. Each ``process`` runs under
+    ``set_sync_debug_mode("warn")`` and its host syncs are counted; the
+    host clock per frame is taken between two ``synchronize()``. Holds the
+    run to >= 80% tracked, ATE < 0.5, <= 2 syncs per ordinary frame, a
+    window-BA attempt and one launch of each kernel per tracked frame.
+    Returns (run record, launches, ms/frame by frame kind)."""
     from vslam_tpu_torch.ops import associate as k2
     from vslam_tpu_torch.ops import hamming
-    from vslam_tpu_torch.optimizer import ba
-    from vslam_tpu_torch.pipeline import keyframes, tracker
-    from vslam_tpu_torch.pipeline.slam import SLAMSystem
     from vslam_tpu_torch.utils import evaluate
 
-    cfg = VSLAMConfig()
-    n_frames = 31
-    t0 = time.perf_counter()
-    frames_np, gt = _render(cfg, n_frames, BENCH_SCENE, 1.0, 0)
-    frames = torch.from_numpy(np.stack(frames_np)).to(dev)
-    print(f"rendered {n_frames} frames in {time.perf_counter() - t0:.1f} s")
-    # warm-up: the solver's first-call costs (cuSOLVER, allocator) at the
-    # window's shapes, off the clock (phase 6 warmed the step)
-    wp0 = keyframes.build_window_problem(
-        keyframes.empty_store(40, cfg.frontend.max_keypoints, dev),
-        empty_map(cfg.map.capacity, cfg.map.obs_per_point, dev), cfg,
-        free_tail=cfg.ba.free_cams, prov_min_obs=99)
-    ba.solve_robust(wp0.problem, tracker._K(cfg, dev), cfg.ba)
-    torch.cuda.synchronize()
-
-    s = SLAMSystem(cfg, dev)
+    n_frames = frames.shape[0]
     hamming.launches = 0
     k2.launches = 0
     infos, wall, syncs, sites = [], [], [], []
@@ -702,21 +700,60 @@ def run_slam_path(torch, dev, failures):
     ok = np.array([bool(x["success"]) for x in infos[1:]])
     est = s.poses()
     ate = evaluate.ate_rmse(est, gt.astype(np.float64))[0]
-    print(f"SLAM path: {n_frames} frames, tracked {int(ok.sum())}/{len(ok)}, "
+    print(f"{label}: {n_frames} frames, tracked {int(ok.sum())}/{len(ok)}, "
           f"keyframes {int(s.kf_store.count)}, ATE {ate:.4f}, map "
           f"{infos[-1]['map_size']}, launches {launches}")
     if ok.mean() < 0.8:
-        failures.append(f"SLAM path tracked only {int(ok.sum())}/{len(ok)}")
+        failures.append(f"{label} tracked only {int(ok.sum())}/{len(ok)}")
     if not np.isfinite(est).all() or not ate < 0.5:
-        failures.append(f"SLAM path trajectory off: ATE {ate}")
+        failures.append(f"{label} trajectory off: ATE {ate}")
     if max(ord_syncs) > 2:
-        failures.append(f"{max(ord_syncs)} host syncs in an ordinary frame")
+        failures.append(f"{label}: {max(ord_syncs)} host syncs in an "
+                        "ordinary frame")
     if not any(x["ran_ba"] for x in infos[1:]) or not events:
-        failures.append("window BA was never attempted")
+        failures.append(f"{label}: window BA was never attempted")
     for name, n in launches.items():
         if n < n_frames - 1:
-            failures.append(f"{name} kernel launched {n} times in the SLAM "
-                            f"path's {n_frames - 1} tracked frames")
+            failures.append(f"{label}: {name} kernel launched {n} times "
+                            f"in {n_frames - 1} tracked frames")
+    rec = dict(frames=frames, gt=gt, infos=infos, poses=est, events=events,
+               ms=[1e3 * w for w, k in zip(wall, kinds) if k != "bootstrap"])
+    return rec, launches, ms
+
+
+def run_slam_path(torch, dev, failures):
+    """Phase 8, the slice's main path: ``SLAMSystem.process`` of the default
+    config on bench.py's scene, 31 frames at 1 m steps (keyframes every 5th
+    frame; the window-BA attempt at keyframe 5, frame 25), then
+    ``run_global_ba``. Launch counters reset just before, read just after.
+    Each ``process`` runs under ``set_sync_debug_mode("warn")`` and its
+    host syncs are counted; the host clock per frame is taken between two
+    ``synchronize()``."""
+    from vslam_tpu_torch.config import VSLAMConfig
+    from vslam_tpu_torch.core.types import empty_map
+    from vslam_tpu_torch.optimizer import ba
+    from vslam_tpu_torch.pipeline import keyframes, tracker
+    from vslam_tpu_torch.pipeline.slam import SLAMSystem
+    from vslam_tpu_torch.utils import evaluate
+
+    cfg = VSLAMConfig()
+    n_frames = 31
+    t0 = time.perf_counter()
+    frames_np, gt = _render(cfg, n_frames, BENCH_SCENE, 1.0, 0)
+    frames = torch.from_numpy(np.stack(frames_np)).to(dev)
+    print(f"rendered {n_frames} frames in {time.perf_counter() - t0:.1f} s")
+    # warm-up: the solver's first-call costs (cuSOLVER, allocator) at the
+    # window's shapes, off the clock (phase 6 warmed the step)
+    wp0 = keyframes.build_window_problem(
+        keyframes.empty_store(40, cfg.frontend.max_keypoints, dev),
+        empty_map(cfg.map.capacity, cfg.map.obs_per_point, dev), cfg,
+        free_tail=cfg.ba.free_cams, prov_min_obs=99)
+    ba.solve_robust(wp0.problem, tracker._K(cfg, dev), cfg.ba)
+    torch.cuda.synchronize()
+
+    s = SLAMSystem(cfg, dev)
+    p8, launches, ms = _process_run(torch, s, frames, gt, "SLAM path",
+                                    failures)
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -751,8 +788,6 @@ def run_slam_path(torch, dev, failures):
     wide = [p for p, t in held if t.dtype == torch.float64]
     if wide:
         failures.append(f"float64 in the state: {wide}")
-    p8 = dict(frames=frames, infos=infos, poses=est, events=events,
-              ms=[1e3 * w for w, k in zip(wall, kinds) if k != "bootstrap"])
     return s, launches, ms, ms_global, p8
 
 
@@ -882,40 +917,23 @@ def _chunks(torch, s, inputs, sizes, render_fn=None):
     return out, syncs
 
 
-def _graph_ms(torch, fn, reps: int = 20) -> float:
-    """Device ms per replay of ``fn`` captured as a CUDA graph (CUDA
-    events around ``reps`` back-to-back replays)."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        fn()
-    return _time_ms(torch, g.replay, reps=reps)
-
-
-def run_chunked_path(torch, dev, p8, failures):
-    """Phase 11: the chunked driver at full width. ``process_chunk`` of the
-    default config over phase 8's 31 frames, bootstrap + 25 then 5 (25 =
-    keyframe_every * local_ba_every: the window-BA event lands on frame 25
-    as in phase 8). Held to phase 8 frame by frame. The frame body is one
-    captured graph replayed per frame: K1 and K2 are captured once each and
-    launch on every replay; the replay loop runs with
-    ``set_sync_debug_mode("error")``. Prints capture seconds, the graph
-    pool's peak, chunked ms/frame (host clock over each chunk's replays
-    through the one fetch of its rows, capture excluded) beside phase 8's,
-    the graph's device ms per replay, and maintenance's cost inside a
-    graph (computed on every frame, kept where it fires)."""
-    from vslam_tpu_torch.config import VSLAMConfig
+def _chunked_run(torch, dev, cfg, ref, label, failures):
+    """``process_chunk`` of ``cfg`` over ``ref``'s frames (a ``_process_run``
+    record), bootstrap + 25 then the rest (25 = keyframe_every *
+    local_ba_every: the window-BA event lands on frame 25 as in the
+    per-frame run), held to ``ref`` frame by frame: flags equal, inliers
+    and map size within 2, poses to 1e-3 / 5e-3, the BA events' outcomes.
+    The frame body is one captured graph replayed per frame: K1 and K2 are
+    captured once each and launch on every replay; the replay loop runs
+    with ``set_sync_debug_mode("error")``. Returns (system, graph, numbers:
+    launches (captured times replays), chunked ms/frame (host clock over
+    each chunk's replays through the one fetch of its rows, capture
+    excluded), capture seconds, graph pool peak)."""
     from vslam_tpu_torch.ops import associate as k2
     from vslam_tpu_torch.ops import hamming
-    from vslam_tpu_torch.pipeline import scan_driver
     from vslam_tpu_torch.pipeline.slam import SLAMSystem
 
-    cfg = VSLAMConfig()
-    frames = p8["frames"]
+    frames = ref["frames"]
     n = frames.shape[0]
     align = cfg.pipeline.keyframe_every * cfg.pipeline.local_ba_every
     s = SLAMSystem(cfg, dev)
@@ -925,7 +943,7 @@ def run_chunked_path(torch, dev, p8, failures):
     counted = {"hamming": hamming.launches, "associate": k2.launches}
     g = s.chunk_graphs[None]
     launches = {k: v * g.replays for k, v in g.captured_launches.items()}
-    print(f"chunked: capture {g.capture_s:.2f} s (eager warm-up + capture), "
+    print(f"{label}: capture {g.capture_s:.2f} s (eager warm-up + capture), "
           f"graph pool peak {g.pool_peak_bytes / 2 ** 20:.1f} MiB; kernels "
           f"captured per frame {g.captured_launches}, replays {g.replays}, "
           f"launches {launches} (wrapper counters {counted}: one eager "
@@ -933,14 +951,14 @@ def run_chunked_path(torch, dev, p8, failures):
           f"{syncs} (the rows' fetch, BA's own; 0 inside the replay loop, "
           f"enforced)")
     if g.captured_launches != {"hamming": 1, "associate": 1}:
-        failures.append(f"chunked: kernels captured {g.captured_launches}, "
+        failures.append(f"{label}: kernels captured {g.captured_launches}, "
                         "want one of each per frame")
     if g.replays != n - 1:
-        failures.append(f"chunked: {g.replays} replays for {n - 1} frames")
+        failures.append(f"{label}: {g.replays} replays for {n - 1} frames")
 
-    rows, want = _frame_rows(s), p8["infos"][1:]
+    rows, want = _frame_rows(s), ref["infos"][1:]
     est = s.poses()
-    err = np.abs(est - p8["poses"]).max(axis=(1, 2))
+    err = np.abs(est - ref["poses"]).max(axis=(1, 2))
     bad = []
     for i, (x, y) in enumerate(zip(want, rows), 1):
         if (x["keyframe"] and x["success"]) != y["keyframe"] or any(
@@ -953,21 +971,43 @@ def run_chunked_path(torch, dev, p8, failures):
     if len(rows) != len(want):
         bad.append(f"{len(rows)} rows for {len(want)} frames")
     if err[:align + 1].max() > 1e-3 or err.max() > 5e-3:
-        bad.append(f"poses off phase 8's by {err.max():.2e}")
+        bad.append(f"poses off by {err.max():.2e}")
     outcome = lambda ev: [(e.get("skipped"), e["ba_result_accepted"])
                           for e in ev]
     events = [r for r in s.metrics.records if r.get("kind") == "ba"]
-    if outcome(events) != outcome(p8["events"]) or not res[0]["ran_ba"]:
-        bad.append(f"BA events {outcome(events)} vs phase 8's "
-                   f"{outcome(p8['events'])}")
+    if outcome(events) != outcome(ref["events"]) or not res[0]["ran_ba"]:
+        bad.append(f"BA events {outcome(events)} vs "
+                   f"{outcome(ref['events'])}")
     ok = sum(r["success"] for r in rows)
-    print(f"chunked vs phase 8: tracked {ok}/{len(rows)}, max |pose diff| "
+    print(f"{label} vs process: tracked {ok}/{len(rows)}, max |pose diff| "
           f"{err[:align + 1].max():.2e} to frame {align}, {err.max():.2e} "
           f"after; BA events {outcome(events)}; disagreements {bad}")
-    failures.extend(f"chunked vs phase 8: {b}" for b in bad)
+    failures.extend(f"{label} vs process: {b}" for b in bad)
 
     per = [r["track_s"] / r["frames"] for r in res]
     ms_frame = 1e3 * sum(r["track_s"] for r in res) / (n - 1)
+    ref_ms = float(np.mean(ref["ms"]))
+    print(f"{label} ms/frame {ms_frame:.3f} (host clock, chunks "
+          f"{[round(1e3 * x, 3) for x in per]}; the bootstrap and BA "
+          f"excluded); process {ref_ms:.3f} ms/frame over its "
+          f"{len(ref['ms'])} tracked frames, {ref_ms / ms_frame:.2f}x")
+    return s, g, dict(launches=launches, ms_frame=ms_frame,
+                      process_ms_frame=ref_ms, capture_s=g.capture_s,
+                      pool_mib=g.pool_peak_bytes / 2 ** 20,
+                      max_pose_diff=float(err.max()))
+
+
+def run_chunked_path(torch, dev, p8, failures):
+    """Phase 11: the chunked driver at full width, ``_chunked_run`` of the
+    default config held to phase 8. Then the graph's device ms per replay
+    and maintenance's cost inside a graph (computed on every frame, kept
+    where it fires)."""
+    from vslam_tpu_torch.config import VSLAMConfig
+    from vslam_tpu_torch.pipeline import scan_driver
+    from vslam_tpu_torch.utils.profiling import graph_ms
+
+    cfg = VSLAMConfig()
+    s, g, out = _chunked_run(torch, dev, cfg, p8, "chunked", failures)
     replay_ms = _time_ms(torch, g.graph.replay, reps=10)
     st, sr = s.state, s.kf_store
 
@@ -978,17 +1018,11 @@ def run_chunked_path(torch, dev, p8, failures):
         return (scan_driver._select(need, m2, st.map),
                 torch.where(need, pid2, st.prev_map_id),
                 torch.where(need, obs2, sr.obs_pid))
-    maint_ms = _graph_ms(torch, maintenance)
-    p8_ms = float(np.mean(p8["ms"]))
-    print(f"chunked ms/frame {ms_frame:.3f} (host clock, chunks "
-          f"{[round(1e3 * x, 3) for x in per]}; the bootstrap and BA "
-          f"excluded), graph replay {replay_ms:.3f} ms/frame (CUDA events), "
+    maint_ms = graph_ms(maintenance, reps=20)
+    print(f"chunked: graph replay {replay_ms:.3f} ms/frame (CUDA events), "
           f"maintenance in a graph {maint_ms:.3f} ms/frame at capacity "
-          f"{cfg.map.capacity}; phase 8 process {p8_ms:.3f} ms/frame over "
-          f"its {len(p8['ms'])} tracked frames, {p8_ms / ms_frame:.2f}x")
-    return dict(launches=launches, ms_frame=ms_frame, replay_ms=replay_ms,
-                capture_s=g.capture_s,
-                pool_mib=g.pool_peak_bytes / 2 ** 20)
+          f"{cfg.map.capacity}")
+    return dict(out, replay_ms=replay_ms)
 
 
 def run_chunked_bounded(torch, dev, p10, failures):
@@ -1088,6 +1122,115 @@ def run_rendered_chunks(torch, dev, failures):
                             f"{frac:.6f} of pixels within 2e-5")
 
 
+def variant_config():
+    """Phase 13's configuration: the default with both front-end variants
+    (steered BRIEF on the dense orientation map, mapped-track carry)."""
+    import dataclasses
+
+    from vslam_tpu_torch.config import VSLAMConfig
+
+    cfg = VSLAMConfig()
+    return cfg.replace(frontend=dataclasses.replace(
+        cfg.frontend, oriented=True, track_carry=True))
+
+
+# phase 13's tolerances: orientation where the centroid moment's magnitude
+# exceeds ORIENT_FLOOR (the moments are bit-equal CUDA vs CPU, so atan2's
+# ulps remain); a descriptor bit may differ only where a rotated sample
+# lies within TIE_SLACK px (plus an f32 ulp) of a half-integer
+ORIENT_FLOOR, ORIENT_TOL, TIE_SLACK = 1e-2, 1e-5, 1e-5
+
+
+def check_variant_ops(torch, dev, cfg, frames, failures):
+    """Phase 13 (a): the variants' front-end ops at full width, CUDA
+    against the CPU on the same inputs: ``detect_with_carry`` (frame 1,
+    carrying frame 0's keypoints moved by (1, 0.5) px) with equal masks
+    and coordinates to 2 ulps; ``orientation_map`` to ORIENT_TOL where the
+    moment exceeds ORIENT_FLOOR; steered ``describe`` on the 3072
+    keypoints with one angle tensor fed to both devices, bits equal except
+    at rounding ties."""
+    from vslam_tpu_torch.frontend import descriptors, features
+
+    fe, H, W = cfg.frontend, cfg.camera.height, cfg.camera.width
+    img0, img1 = frames[0].cpu(), frames[1].cpu()
+    uv0, _, ok0 = features.detect(img0, fe, H, W)
+    carry = uv0 + torch.tensor([1.0, 0.5])
+    want = features.detect_with_carry(img1, fe, H, W, carry, ok0)
+    got = [t.cpu() for t in features.detect_with_carry(
+        frames[1], fe, H, W, carry.to(dev), ok0.to(dev))]
+    mask = want[2].numpy()
+    ref_uv = want[0].numpy()[mask]
+    uv_err = np.abs(got[0].numpy()[mask] - ref_uv)
+    near = bool((uv_err <= 2 * np.spacing(np.abs(ref_uv))).all())
+    print(f"detect_with_carry CUDA vs CPU ({mask.size} keypoints, "
+          f"{int(ok0.sum())} carried): masks equal "
+          f"{torch.equal(got[2], want[2])}, valid {int(mask.sum())}, max "
+          f"|uv diff| {float(uv_err.max()):.3e} (within 2 ulps: {near})")
+    if not torch.equal(got[2], want[2]) or not near:
+        failures.append("detect_with_carry CUDA vs CPU")
+
+    blur = features.gaussian_blur(img1, fe.blur_sigma)
+    blur_dev = features.gaussian_blur(frames[1], fe.blur_sigma)
+    m01, m10 = descriptors.centroid_moments(blur, fe.patch_radius)
+    a_cpu = torch.atan2(m01, m10)
+    a_dev = descriptors.orientation_map(blur_dev, fe.patch_radius).cpu()
+    dth = torch.remainder(a_dev - a_cpu + np.pi, 2 * np.pi) - np.pi
+    strong = torch.hypot(m01, m10) > ORIENT_FLOOR
+    worst = float(dth.abs()[strong].max())
+    print(f"orientation_map CUDA vs CPU ({W}x{H}): max |dtheta| {worst:.3e} "
+          f"rad where |m| > {ORIENT_FLOOR} ({float(strong.float().mean()):.4f}"
+          f" of pixels), {float(dth.abs().max()):.3e} anywhere")
+    if not worst <= ORIENT_TOL:
+        failures.append(f"orientation_map CUDA vs CPU: {worst}")
+
+    uv = want[0]
+    angle = descriptors.orientations_at(blur, uv, fe.patch_radius)
+    bits = descriptors.unpack_bits(descriptors.describe(blur, uv, angle, fe))
+    bits_dev = descriptors.unpack_bits(descriptors.describe(
+        blur_dev, uv.to(dev), angle.to(dev), fe)).cpu()
+    tied, live = _scenes().describe_ties(
+        blur.numpy(), uv.numpy(), angle.numpy(),
+        descriptors.brief_pattern(fe.descriptor_bits, fe.patch_radius),
+        TIE_SLACK)
+    flips = (bits != bits_dev).numpy()
+    print(f"describe CUDA vs CPU ({uv.shape[0]} keypoints x "
+          f"{fe.descriptor_bits} pairs): {int(flips.sum())} bits differ, "
+          f"{int((flips & ~tied).sum())} of them away from ties; ties "
+          f"within {TIE_SLACK} px + 1 ulp of a half-integer: "
+          f"{int(tied.sum())} pairs, {int(live.sum())} of them able to flip")
+    if (flips & ~tied).any():
+        failures.append("describe CUDA vs CPU: bits differ away from ties")
+
+
+def run_variants(torch, dev, p8, failures):
+    """Phase 13: the full-width front-end variants (``variant_config``) on
+    phase 8's scene and frames: (a) ``check_variant_ops``; (b)
+    ``SLAMSystem.process`` over the 31 frames, held as phase 8 is
+    (``_process_run``); (c) ``process_chunk`` over the same frames held to
+    (b) frame by frame (``_chunked_run``); (d) ``ops.bench_kernels``'
+    Hamming agreement at 3072 x 3072 on the card: ``hamming_matmul``,
+    ``hamming_popcount`` and ``torch.cdist(p=0)`` equal K1."""
+    from vslam_tpu_torch.ops import bench_kernels
+    from vslam_tpu_torch.pipeline.slam import SLAMSystem
+
+    cfg = variant_config()
+    check_variant_ops(torch, dev, cfg, p8["frames"], failures)
+    ref, launches, ms = _process_run(torch, SLAMSystem(cfg, dev),
+                                     p8["frames"], p8["gt"], "variants",
+                                     failures)
+    _, _, chunk = _chunked_run(torch, dev, cfg, ref, "variants chunked",
+                               failures)
+    rng = np.random.RandomState(13)
+    d1, d2 = (bench_kernels.random_descriptors(rng, 3072, dev)
+              for _ in range(2))
+    equal = bench_kernels.hamming_agreement(d1, d2)
+    print(f"bench_kernels Hamming agreement on the card, 3072 x 3072: "
+          f"equal to K1 {equal}")
+    if not all(equal.values()):
+        failures.append(f"Hamming formulations disagree with K1: {equal}")
+    return dict(launches=launches, ms=ms, chunk=chunk)
+
+
 def main() -> int:
     import torch
 
@@ -1145,11 +1288,13 @@ def main() -> int:
     p10 = run_bounded_map(torch, dev, failures)
     phase_done(10)
     chunked = run_chunked_path(torch, dev, p8, failures)
-    del p8
     phase_done(11)
     run_chunked_bounded(torch, dev, p10, failures)
     run_rendered_chunks(torch, dev, failures)
     phase_done(12)
+    variants = run_variants(torch, dev, p8, failures)
+    del p8
+    phase_done(13)
 
     # launches: the SLAM path's (phase 8); the tracking step's own run
     # (phase 6) is kept beside it
@@ -1159,13 +1304,19 @@ def main() -> int:
              replaces="vslam_tpu/ops/pallas_hamming.py:50",
              launches=launches["hamming"],
              launches_track_step=step_launches["hamming"],
-             launches_chunked=chunked["launches"]["hamming"], **k1),
+             launches_chunked=chunked["launches"]["hamming"],
+             launches_variants=variants["launches"]["hamming"],
+             launches_variants_chunked=variants["chunk"]["launches"][
+                 "hamming"], **k1),
         dict(name="associate", route="cuda",
              source="vslam_tpu_torch/csrc/associate.cu",
              replaces="vslam_tpu/ops/pallas_associate.py:71",
              launches=launches["associate"],
              launches_track_step=step_launches["associate"],
-             launches_chunked=chunked["launches"]["associate"], **k2),
+             launches_chunked=chunked["launches"]["associate"],
+             launches_variants=variants["launches"]["associate"],
+             launches_variants_chunked=variants["chunk"]["launches"][
+                 "associate"], **k2),
     ]
     for f in failures:
         print("FAIL:", f)
@@ -1179,7 +1330,12 @@ def main() -> int:
           + f"; chunked (phase 11) {chunked['ms_frame']:.3f} ms/frame, graph "
           f"replay {chunked['replay_ms']:.3f} ms (device), capture "
           f"{chunked['capture_s']:.2f} s, pool peak "
-          f"{chunked['pool_mib']:.1f} MiB ({name}; {smi})")
+          f"{chunked['pool_mib']:.1f} MiB; variants (phase 13) process "
+          + ", ".join(f"{k} {v[0]:.3f} (n={v[1]})"
+                      for k, v in variants["ms"].items() if v[0] is not None)
+          + f", chunked {variants['chunk']['ms_frame']:.3f} ms/frame, "
+          f"capture {variants['chunk']['capture_s']:.2f} s, pool peak "
+          f"{variants['chunk']['pool_mib']:.1f} MiB ({name}; {smi})")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -3,6 +3,7 @@ reference's, on the CPU: the synthetic run writes every output the
 reference writes, ``eval`` prints the reference's numbers, and the
 configuration precedence of tests/test_cli.py holds."""
 import argparse
+import dataclasses
 import json
 
 import numpy as np
@@ -124,3 +125,25 @@ def test_stream_viewer(tmp_path):
     assert len(pts) == 2 and any(r.get("reset") for r in recs)
     assert [len(r["points"]) for r in recs[:2]] == [4, 3]
     assert (tmp_path / "live.html").exists()
+
+
+def test_run_with_both_frontend_variants(tmp_path):
+    """``run --config F.json`` whose frontend section turns on ``oriented``
+    and ``track_carry`` tracks the synthetic sequence and writes
+    summary.json. F.json is the small config with the two flags (a JSON
+    config replaces the whole config, so a frontend-only file would run
+    the full-size defaults)."""
+    from vslam_tpu_torch.config import small_config
+
+    cfg = small_config()
+    cfg = cfg.replace(frontend=dataclasses.replace(
+        cfg.frontend, oriented=True, track_carry=True))
+    p = tmp_path / "F.json"
+    p.write_text(cfg.to_json())
+    assert json.loads(p.read_text())["frontend"]["oriented"] is True
+    out = tmp_path / "out"
+    assert cli.main(RUN + ["--device", "cpu", "--config", str(p),
+                           "--out", str(out)]) == 0
+    summary = json.loads((out / "summary.json").read_text())
+    assert summary["frames"] == 8 and summary["map_points"] > 0
+    assert summary["ate_rmse"] < 0.5

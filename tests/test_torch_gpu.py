@@ -375,6 +375,8 @@ CHUNK_CASES = {
     "ba-aligned": (25, True, (5, 4, 4, 4, 4, 4)),
     # frames drawn inside the graph by render_frame_device
     "render-fn": (12, False, (6, 6)),
+    # both front-end variants (oriented, track_carry) in the graph
+    "variants": (17, False, (7, 5, 5)),
 }
 
 
@@ -386,16 +388,20 @@ def test_chunk_matches_process_on_cuda(cuda, case):
     frame body and replayed once per frame."""
     from vslam_tpu_torch.pipeline import slam
     n, ba_on, sizes = CHUNK_CASES[case]
+    cfg = CFG
+    if case == "variants":
+        cfg = CFG.replace(frontend=dataclasses.replace(
+            CFG.frontend, oriented=True, track_carry=True))
     render = None
     if case == "render-fn":
         inputs, render = _corridor_renderer(cuda, n)
         frames = torch.stack([render(p) for p in inputs])
     else:
         inputs = frames = torch.from_numpy(_chunk_scene(n)).to(cuda)
-    a = slam.SLAMSystem(CFG, cuda, enable_ba=ba_on)
+    a = slam.SLAMSystem(cfg, cuda, enable_ba=ba_on)
     for f in frames:
         a.process(f)
-    b = slam.SLAMSystem(CFG, cuda, enable_ba=ba_on)
+    b = slam.SLAMSystem(cfg, cuda, enable_ba=ba_on)
     s0 = 0
     for k in sizes:
         b.process_chunk(inputs[s0:s0 + k], render_fn=render)
@@ -474,3 +480,84 @@ def test_chunk_capture_failure_raises(cuda):
     assert s.frame_idx == 1 and len(_frame_rows(s)) == 0
     assert torch.equal(s.state.pose, before)
     assert s.chunk_graphs[syncing].graph is None
+
+
+# ---- the front-end variants (oriented, track_carry) ------------------------
+
+def _variant_frames(seed=3):
+    from vslam_tpu_torch.datasets import synthetic
+    scene = synthetic.make_scene(num_points=600, seed=seed,
+                                 extent=(14, 6, 40), z_min=6.0)
+    poses = synthetic.make_trajectory(2, step=0.6, seed=seed)
+    return [torch.from_numpy(f) for f in synthetic.render_sequence(
+        CFG.camera.K(), poses, scene, W, H)]
+
+
+def test_detect_with_carry_on_cuda_matches_cpu(cuda):
+    """Masks and order equal, coordinates to 2 ulps (the corner response
+    is the same IEEE f32 operations on both devices)."""
+    from vslam_tpu_torch.frontend import features
+    fe = CFG.frontend
+    f0, f1 = _variant_frames()
+    uv0, _, ok0 = features.detect(f0, fe, H, W)
+    carry = uv0 + torch.tensor([1.0, 0.5])
+    want = features.detect_with_carry(f1, fe, H, W, carry, ok0)
+    got = [t.cpu() for t in features.detect_with_carry(
+        f1.to(cuda), fe, H, W, carry.to(cuda), ok0.to(cuda))]
+    mask = want[2].numpy()
+    assert torch.equal(got[2], want[2]) and mask.sum() > 100
+    w = want[0].numpy()[mask]
+    assert (np.abs(got[0].numpy()[mask] - w)
+            <= 2 * np.spacing(np.abs(w))).all()
+
+
+def test_orientation_map_on_cuda_matches_cpu(cuda):
+    """The moments are bit-equal (the same shift-MAC sums); the angles
+    differ by atan2's ulps: 1e-5 rad where |m| > 1e-2."""
+    from vslam_tpu_torch.frontend import descriptors, features
+    fe = CFG.frontend
+    blur = features.gaussian_blur(_variant_frames()[1], fe.blur_sigma)
+    m01, m10 = descriptors.centroid_moments(blur, fe.patch_radius)
+    g01, g10 = (t.cpu() for t in descriptors.centroid_moments(
+        blur.to(cuda), fe.patch_radius))
+    assert torch.equal(g01, m01) and torch.equal(g10, m10)
+    want = descriptors.orientation_map(blur, fe.patch_radius)
+    got = descriptors.orientation_map(blur.to(cuda), fe.patch_radius).cpu()
+    d = (torch.remainder(got - want + np.pi, 2 * np.pi) - np.pi).abs()
+    assert float(d[torch.hypot(m01, m10) > 1e-2].max()) <= 1e-5
+
+
+def test_describe_on_cuda_matches_cpu(cuda):
+    """Steered BRIEF with one angle tensor on both devices: bits equal
+    except at rounding ties (torch_scenes.describe_ties, 5e-6 px + 1 ulp)
+    that can flip them."""
+    from vslam_tpu_torch.frontend import descriptors, features
+    fe = CFG.frontend
+    blur = features.gaussian_blur(_variant_frames()[1], fe.blur_sigma)
+    rng = np.random.RandomState(5)
+    uv = torch.from_numpy(rng.uniform(0, [W, H], (512, 2))
+                          .astype(np.float32))
+    angle = torch.from_numpy(rng.uniform(-np.pi, np.pi, 512)
+                             .astype(np.float32))
+    angle[:5] = torch.tensor([0.0, np.pi / 2, -np.pi / 2, np.pi, -np.pi])
+    want = descriptors.unpack_bits(descriptors.describe(blur, uv, angle, fe))
+    got = descriptors.unpack_bits(descriptors.describe(
+        blur.to(cuda), uv.to(cuda), angle.to(cuda), fe)).cpu()
+    _, live = scenes.describe_ties(
+        blur.numpy(), uv.numpy(), angle.numpy(),
+        descriptors.brief_pattern(fe.descriptor_bits, fe.patch_radius),
+        5e-6)
+    assert not ((got != want).numpy() & ~live).any()
+
+
+@pytest.mark.parametrize("n1,n2", [(3072, 3072), (17, 9), (1, 129)])
+def test_hamming_matmul_on_cuda_matches_k1(cuda, n1, n2):
+    """The f16 bit-plane GEMM is exact (0/1 operands, partial sums <= 256)
+    and equals K1, also at all-zero / all-one rows."""
+    from vslam_tpu_torch.matching import hamming
+    rng = np.random.RandomState(n1 + n2)
+    d1, d2 = _desc(rng, n1).to(cuda), _desc(rng, n2).to(cuda)
+    d1[0], d2[-1] = 0, -1
+    got = hamming.hamming_matmul(d1, d2)
+    assert got.dtype == torch.int32
+    assert torch.equal(got, k1.hamming_cuda(d1, d2))

@@ -1,8 +1,10 @@
-"""Adversarial inputs for the port's two kernels, as numpy arrays.
+"""Adversarial inputs for the port's two kernels, as numpy arrays, and the
+steered-BRIEF rounding-tie detector.
 
 Shared by tests/test_torch_kernels.py (the plain versions against the JAX
-reference, on the CPU) and tests/test_torch_gpu.py (the CUDA kernels against
-the plain versions, on a card); numpy only, so the GPU host needs no jax.
+reference, on the CPU), tests/test_torch_gpu.py (the CUDA kernels against
+the plain versions, on a card), tests/test_torch_frontend_variants.py and
+chip_smoke.py; numpy only, so the GPU host needs no jax.
 
 K2 scenes place map points by their pixels: a point at (u, v, 1) seen
 through P = [I | 0] projects to exactly (u, v), so points can sit exactly on
@@ -252,3 +254,58 @@ def check_expect(sc, pid, dist):
         assert pid[k] == want_id, (k, pid[k], want_id)
         if want_id >= 0:
             assert dist[k] == want_d, (k, dist[k], want_d)
+
+
+def steered_coords(uv, angle, pattern):
+    """Steered BRIEF's absolute sample coordinates (x1, y1, x2, y2), each
+    (N, B) f32, for keypoints uv (N, 2) at angles (N,) and the (B, 4)
+    pattern: frontend.descriptors.describe's f32 arithmetic, with numpy's
+    cos and sin."""
+    a = np.asarray(angle, np.float32)
+    c, s = np.cos(a)[:, None], np.sin(a)[:, None]
+    p = np.asarray(pattern, np.float32)
+    u = np.asarray(uv, np.float32)
+    out = []
+    for px, py in ((p[:, 0], p[:, 1]), (p[:, 2], p[:, 3])):
+        out += [u[:, 0:1] + (c * px - s * py), u[:, 1:2] + (s * px + c * py)]
+    return out
+
+
+def half_ties(v, slack):
+    """f32 coordinates whose nearest-pixel rounding another implementation
+    may decide differently: within ``slack`` px plus one f32 ulp of a
+    half-integer. ``slack`` bounds how far the other implementation's
+    offset may lie from this one (an ulp or so of cos / sin / atan2 times
+    a 14 px offset, and FMA contraction); the ulp, how far the f32 sum
+    uv + offset then moves."""
+    v = np.asarray(v, np.float32)
+    d = np.abs(v.astype(np.float64) - (np.floor(v) + 0.5))
+    return d <= slack + np.spacing(np.abs(v)).astype(np.float64)
+
+
+def describe_ties(img, uv, angle, pattern, slack):
+    """(tied, live), each (N, B) bool, for steered BRIEF on the blurred
+    image ``img`` (H, W): ``tied`` marks the pairs with a sample coordinate
+    in ``half_ties``; ``live`` those of them whose bit depends on which way
+    the tied coordinates round (both bit values reachable)."""
+    img = np.asarray(img)
+    H, W = img.shape
+    x1, y1, x2, y2 = steered_coords(uv, angle, pattern)
+    ties = [half_ties(v, slack) for v in (x1, y1, x2, y2)]
+
+    def cands(v, t, size):
+        near = np.clip(np.round(v), 0, size - 1)
+        lo = np.clip(np.floor(v), 0, size - 1)
+        hi = np.clip(np.floor(v) + 1, 0, size - 1)
+        return (np.where(t, lo, near).astype(np.int64),
+                np.where(t, hi, near).astype(np.int64))
+
+    def span(x, tx, y, ty):
+        vals = np.stack([img[yy, xx] for yy in cands(y, ty, H)
+                         for xx in cands(x, tx, W)])
+        return vals.min(axis=0), vals.max(axis=0)
+
+    lo1, hi1 = span(x1, ties[0], y1, ties[1])
+    lo2, hi2 = span(x2, ties[2], y2, ties[3])
+    tied = ties[0] | ties[1] | ties[2] | ties[3]
+    return tied, (lo1 < hi2) & (hi1 >= lo2)

@@ -1,10 +1,11 @@
 """Two-view epipolar geometry on torch tensors.
 
-Port of the functions of ``vslam_tpu/geometry/epipolar.py`` that
-``ransac_pose`` reaches. Where the reference ``vmap``s a function over a
-hypothesis or start axis, the port writes the batch axis out (leading
-``...`` dims). Linear solves use ``solve_ex``/``inv_ex`` and 3x3
-determinants are written out, so nothing syncs with the host on CUDA.
+Port of ``vslam_tpu/geometry/epipolar.py``. Where the reference ``vmap``s
+a function over a hypothesis or start axis, the port writes the batch axis
+out (leading ``...`` dims). Linear solves use ``solve_ex``/``inv_ex`` and
+3x3 determinants are written out, so nothing on the tracking step's path
+syncs with the host on CUDA (``fundamental_from_8pt(method="svd")``, off
+that path, calls ``torch.linalg.svd``).
 """
 from __future__ import annotations
 
@@ -59,16 +60,34 @@ def _constraint_rows(uv1, uv2):
         [u2 * u1, u2 * v1, u2, v2 * u1, v2 * v1, v2, u1, v1, one], dim=-1)
 
 
-def fundamental_from_8pt(uv1, uv2, sweeps: int = 8):
-    """Least-squares F from >= 8 correspondences (..., N, 2), the Jacobi
-    path of the reference. Returns (..., 3, 3), ||F|| = 1, rank 2."""
+def fundamental_from_8pt(uv1, uv2, method: str = "jacobi", sweeps: int = 8):
+    """Least-squares F from >= 8 correspondences (..., N, 2). Returns
+    (..., 3, 3), ||F|| = 1, rank 2, in pixel coordinates.
+
+    ``"jacobi"`` (the RANSAC hot path): the null vector of A^T A by the
+    batched fixed-sweep Jacobi solver and a closed-form rank-2 projection.
+    ``"svd"``: ``torch.linalg.svd`` of A itself (error ~ cond(A), not
+    cond(A)^2) and an SVD rank-2 projection, for one accurate estimate; F's
+    sign follows the SVD's and may differ from the reference's LAPACK. No
+    path of the port (nor of the reference) calls it: it exists for parity
+    with the reference's signature.
+    """
+    if method not in ("jacobi", "svd"):
+        raise ValueError(f"unknown method {method!r}")
     ones = torch.ones(uv1.shape[:-1], dtype=torch.bool, device=uv1.device)
     n1, T1 = hartley_normalize(uv1, ones)
     n2, T2 = hartley_normalize(uv2, ones)
     A = _constraint_rows(n1, n2)
-    f = jacobi.null_vector(A, sweeps=sweeps)
-    F = f.reshape(f.shape[:-1] + (3, 3))
-    F = jacobi.rank2_project(F, sweeps=sweeps)
+    if method == "jacobi":
+        f = jacobi.null_vector(A, sweeps=sweeps)
+        F = f.reshape(f.shape[:-1] + (3, 3))
+        F = jacobi.rank2_project(F, sweeps=sweeps)
+    else:
+        Vt = torch.linalg.svd(A, full_matrices=True)[2]
+        F = Vt[..., -1, :].reshape(A.shape[:-2] + (3, 3))
+        U, D, Vt = torch.linalg.svd(F)
+        D = torch.cat([D[..., :2], torch.zeros_like(D[..., 2:])], dim=-1)
+        F = (U * D[..., None, :]) @ Vt
     F = T2.transpose(-1, -2) @ F @ T1
     norm = torch.linalg.vector_norm(F, dim=(-2, -1), keepdim=True) + 1e-12
     return F / norm
@@ -87,6 +106,16 @@ def sampson_error(F, uv1, uv2):
     den = (Fx1[..., 0] * Fx1[..., 0] + Fx1[..., 1] * Fx1[..., 1]
            + Ftx2[..., 0] * Ftx2[..., 0] + Ftx2[..., 1] * Ftx2[..., 1])
     return num / torch.clamp(den, min=1e-12)
+
+
+def essential_from_fundamental(F, K):
+    """E = K^T F K (..., 3, 3), projected to singular values (s, s, 0) with
+    s the mean of the first two (3x3 SVD by the Jacobi backend)."""
+    E = K.T @ F @ K
+    U, D, Vt = jacobi.svd3(E)
+    s = (D[..., 0] + D[..., 1]) * 0.5
+    keep = device_constant((1.0, 1.0, 0.0), E.dtype, E.device)
+    return (U * (keep * s[..., None])[..., None, :]) @ Vt
 
 
 def decompose_essential(E):
@@ -251,3 +280,15 @@ def refine_pose_gn_multistart(R, t, K, uv1, uv2, w, iters: int = 16,
     costs = torch.where(votes >= floor, costs, torch.inf)
     best = torch.argmin(costs)
     return pick(Rs, best), pick(ts, best)
+
+
+def recover_pose(E, K, uv1, uv2, mask):
+    """The (R, t) candidate of E with the most correspondences in front of
+    both cameras. E, K (3, 3); uv1, uv2 (N, 2); mask (N,). Returns R (3, 3),
+    t (3,), votes (4,) i32 in-front counts per candidate. The candidates'
+    order follows the SVD's signs (compare votes sorted)."""
+    Rs, ts = decompose_essential(E)
+    z1, z2 = triangulate_midpoint_depths(K, Rs, ts, uv1, uv2)
+    votes = ((z1 > 0) & (z2 > 0) & mask[None, :]).sum(dim=1).to(torch.int32)
+    best = torch.argmax(votes)
+    return pick(Rs, best), pick(ts, best), votes

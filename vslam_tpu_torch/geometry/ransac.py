@@ -1,22 +1,35 @@
-"""Relative-pose RANSAC with cheirality-aware model selection.
+"""Batched hypothesize-and-verify RANSAC.
 
-Port of ``vslam_tpu/geometry/ransac.py``: ``sample_minimal_sets`` and
-``ransac_pose`` with its two-stage verification and LO + multistart refine.
-The hypothesis axis is a batch axis, as in the reference. Sampling draws
-from an explicit ``torch.Generator`` with no host sync; the reference's
-``jax.random`` stream cannot be reproduced, so parity tests hand both sides
-the same (H, 8) samples through ``ransac_pose_from_samples``.
+Port of ``vslam_tpu/geometry/ransac.py``: ``sample_minimal_sets``, the
+generic ``ransac`` and ``ransac_fundamental`` (with its weighted 8-point
+polish), and ``ransac_pose`` with its two-stage verification and LO +
+multistart refine. The hypothesis axis is a batch axis, as in the
+reference; where the reference ``vmap``s a fit or residual function over
+it, the port's functions take the batched form (see ``ransac``). Sampling
+draws from an explicit ``torch.Generator`` with no host sync; the
+reference's ``jax.random`` stream cannot be reproduced, so parity tests
+hand both sides the same (H, S) samples through the ``*_from_samples``
+entries.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
+from torch.utils._pytree import tree_map
 
 from . import epipolar
 from ..core import lie
 from ..core.types import pick
 from ..ops import jacobi
+
+
+class RansacResult(NamedTuple):
+    model: object              # best model (a tensor or a tuple of them)
+    inliers: torch.Tensor      # (N,) bool inlier mask of the best model
+    num_inliers: torch.Tensor  # () i32
+    best_score: torch.Tensor   # () f32 truncated residual sum of the best
+    success: torch.Tensor      # () bool
 
 
 class PoseRansacResult(NamedTuple):
@@ -43,6 +56,91 @@ def sample_minimal_sets(gen, weights, num_hypotheses: int, sample_size: int):
                    device=weights.device)
     pos = torch.clamp((u * n_valid).long(), max=n_valid - 1)
     return order[pos]
+
+
+def ransac(gen, fit_fn: Callable, residual_fn: Callable, data_fit,
+           data_verify, valid_mask, num_hypotheses: int, sample_size: int,
+           inlier_threshold: float, min_inliers: int = 8) -> RansacResult:
+    """Generic batched hypothesize-and-verify: draws (H, S) samples from
+    ``gen`` and runs ``ransac_from_samples``."""
+    idx = sample_minimal_sets(gen, valid_mask.to(torch.float32),
+                              num_hypotheses, sample_size)
+    return ransac_from_samples(idx, fit_fn, residual_fn, data_fit,
+                               data_verify, valid_mask, inlier_threshold,
+                               min_inliers)
+
+
+def ransac_from_samples(idx, fit_fn: Callable, residual_fn: Callable,
+                        data_fit, data_verify, valid_mask,
+                        inlier_threshold: float,
+                        min_inliers: int = 8) -> RansacResult:
+    """``ransac`` on given (H, S) minimal-sample indices.
+
+    Args:
+      fit_fn: the samples (the tensors of ``data_fit`` gathered to
+        (H, S, ...)) -> H models, batched along their first axis. The
+        reference's ``fit_fn`` fits one sample and is ``vmap``ped; here it
+        takes the whole batch.
+      residual_fn: (models, data_verify) -> (H, N) squared residuals, also
+        batched over the H models.
+      data_fit: a tensor or a tuple of (N, ...) tensors to sample from.
+      data_verify: passed whole to ``residual_fn``.
+      valid_mask: (N,) bool, which rows are real data.
+      inlier_threshold: squared-residual threshold.
+    Selection: the most inliers, ties broken by the lower truncated
+    (MSAC) residual sum; the first such hypothesis wins.
+    """
+    samples = tree_map(lambda a: a[idx], data_fit)
+    models = fit_fn(samples)
+    resid = residual_fn(models, data_verify)
+    resid = torch.where(valid_mask[None, :], resid, torch.inf)
+    inlier = resid <= inlier_threshold
+    counts = inlier.sum(dim=1)
+    score = _truncated_sum(resid, inlier_threshold)
+    combined = counts.float() - score / (score.max() + 1.0)
+    best = torch.argmax(combined)
+    best_inliers = pick(inlier, best) & valid_mask
+    num = best_inliers.sum().to(torch.int32)
+    return RansacResult(model=tree_map(lambda m: pick(m, best), models),
+                        inliers=best_inliers, num_inliers=num,
+                        best_score=pick(score, best),
+                        success=num >= min_inliers)
+
+
+def ransac_fundamental(gen, uv1, uv2, valid_mask, num_hypotheses: int = 2048,
+                       inlier_threshold: float = 2.0, min_inliers: int = 15,
+                       refine: bool = True) -> RansacResult:
+    """RANSAC fundamental matrix over padded matches uv1, uv2 (N, 2):
+    draws (H, 8) samples from ``gen`` and runs
+    ``ransac_fundamental_from_samples``."""
+    idx = sample_minimal_sets(gen, valid_mask.to(torch.float32),
+                              num_hypotheses, 8)
+    return ransac_fundamental_from_samples(
+        idx, uv1, uv2, valid_mask, inlier_threshold=inlier_threshold,
+        min_inliers=min_inliers, refine=refine)
+
+
+def ransac_fundamental_from_samples(idx, uv1, uv2, valid_mask,
+                                    inlier_threshold: float = 2.0,
+                                    min_inliers: int = 15,
+                                    refine: bool = True) -> RansacResult:
+    """``ransac_fundamental`` on given (H, 8) samples: 8-point fits, Sampson
+    verification, then (``refine``) one weighted 8-point polish on the
+    inliers, kept when it holds at least as many."""
+    result = ransac_from_samples(
+        idx, lambda s: epipolar.fundamental_from_8pt(*s),
+        lambda F, d: epipolar.sampson_error(F, *d), (uv1, uv2), (uv1, uv2),
+        valid_mask, inlier_threshold, min_inliers)
+    if refine:
+        F = _weighted_eight_point(uv1, uv2, result.inliers.to(uv1.dtype))
+        inl = (epipolar.sampson_error(F, uv1, uv2) <= inlier_threshold) \
+            & valid_mask
+        better = inl.sum() >= result.num_inliers
+        inl = torch.where(better, inl, result.inliers)
+        result = result._replace(
+            model=torch.where(better, F, result.model), inliers=inl,
+            num_inliers=inl.sum().to(torch.int32))
+    return result
 
 
 def ransac_pose(gen, uv1, uv2, valid_mask, K, num_hypotheses: int = 2048,

@@ -1,14 +1,19 @@
-"""Hamming distance between packed 256-bit descriptors — the plain oracle.
+"""Hamming distance between packed 256-bit descriptors.
 
-Port of ``vslam_tpu/matching/hamming.py::hamming_popcount``. torch has no
-popcount op, so this is a SWAR bit count on int64 (an int32 SWAR count
-overflows on the 0x01010101 multiply). It materializes (rows, N2, 8)
-int64 words, so it works in row chunks; the matcher's production path is
-``ops/hamming.py`` (kernel K1 on CUDA).
+Port of ``vslam_tpu/matching/hamming.py``; descriptors are (N, 8) int32
+bit-views. torch has no popcount op, so ``hamming_popcount`` (the oracle)
+and ``hamming_pairwise`` use a SWAR bit count on int64 (an int32 SWAR count
+overflows on the 0x01010101 multiply). ``hamming_matmul`` is the bit-plane
+product d(a, b) = |a| + |b| - 2 a·b, which is K1's plain version
+``ops.hamming.hamming_plain``. The matcher's production path is kernel K1
+(``ops/hamming.py``); these stay as the reference's alternatives and the
+yardsticks ``ops.bench_kernels`` races against it.
 """
 from __future__ import annotations
 
 import torch
+
+from ..ops.hamming import hamming_plain
 
 _M32 = 0xFFFFFFFF
 
@@ -24,7 +29,8 @@ def popcount32(x):
 
 
 def hamming_popcount(desc1, desc2, chunk: int = 1024):
-    """(N1,8) x (N2,8) int32 bit-views -> (N1,N2) int32 Hamming distances."""
+    """(N1,8) x (N2,8) int32 bit-views -> (N1,N2) int32 Hamming distances.
+    Works in row chunks: it materializes (rows, N2, 8) int64 words."""
     a = desc1.to(torch.int64)
     b = desc2.to(torch.int64)
     out = []
@@ -35,3 +41,14 @@ def hamming_popcount(desc1, desc2, chunk: int = 1024):
         return torch.zeros((0, b.shape[0]), dtype=torch.int32,
                            device=desc1.device)
     return torch.cat(out, dim=0)
+
+
+# Bit-plane GEMM, (N1,8) x (N2,8) int32 bit-views -> (N1,N2) int32: one
+# implementation, K1's plain version.
+hamming_matmul = hamming_plain
+
+
+def hamming_pairwise(desc1, desc2):
+    """Row-wise Hamming distance of aligned (N, 8) bit-views -> (N,) int32."""
+    x = desc1.to(torch.int64) ^ desc2.to(torch.int64)
+    return popcount32(x).sum(dim=-1).to(torch.int32)

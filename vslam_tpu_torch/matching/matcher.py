@@ -1,10 +1,13 @@
 """Descriptor matching: knn-2 + Lowe ratio + cross-check, fully batched.
 
-Port of ``vslam_tpu/matching/matcher.py::match``. The distance matrix comes
-from kernel K1 (``ops.hamming.hamming_cuda``) whatever
-``MatchingConfig.kernel`` says: the reference's three kernels agree bit for
-bit, and so does K1. ``torch.argmin`` returns the first index of the
-minimum, as ``jnp.argmin`` does, so tie-breaking matches the reference.
+Port of ``vslam_tpu/matching/matcher.py`` (``match``, ``match_pairs``).
+The distance matrix comes from kernel K1 (``ops.hamming.hamming_cuda``)
+for every ``MatchingConfig.kernel`` value: the reference's three
+implementations ("matmul", "popcount", "pallas") agree bit for bit, and so
+does K1, so the setting cannot change a result; routing the default
+"matmul" to ``hamming.hamming_matmul`` would only take the hand kernel off
+the main path. ``torch.argmin`` returns the first index of the minimum, as
+``jnp.argmin`` does, so tie-breaking matches the reference.
 """
 from __future__ import annotations
 
@@ -53,3 +56,10 @@ def match(desc1, mask1, desc2, mask2, cfg: MatchingConfig,
         ok = ok & (best_i_of_j[best_j] == rows)
     return MatchResult(idx2=best_j.to(torch.int32), mask=ok,
                        distance=d_best.to(torch.int32))
+
+
+def match_pairs(result: MatchResult):
+    """(N1, 2) i32 [i, j] match pairs (row i valid iff result.mask[i])."""
+    n1 = result.idx2.shape[0]
+    rows = torch.arange(n1, dtype=torch.int32, device=result.idx2.device)
+    return torch.stack([rows, result.idx2], dim=1)

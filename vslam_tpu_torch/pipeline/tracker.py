@@ -1,11 +1,12 @@
 """The per-frame tracking step: bootstrap + track_step.
 
-Port of ``vslam_tpu/pipeline/tracker.py`` (no mesh, ``track_carry=False``,
-``oriented=False`` — the default config): extract -> match (kernel K1) ->
-RANSAC pose -> scale -> pose chain -> map-id propagation -> search-by-
-projection association (kernel K2) -> PnP -> delayed triangulation -> map
-insert -> landmark refine. The reference's comments on each step explain
-the why; this file keeps the what.
+Port of ``vslam_tpu/pipeline/tracker.py`` (no mesh; both front-end
+variants, ``track_carry`` and ``oriented``): extract (with the mapped-track
+carry when ``track_carry``) -> match (kernel K1) -> RANSAC pose -> scale ->
+pose chain -> map-id propagation -> search-by-projection association
+(kernel K2) -> PnP -> delayed triangulation -> map insert -> landmark
+refine. The reference's comments on each step explain the why; this file
+keeps the what.
 
 On a CUDA device the step runs without host syncs: no ``.item()``, no
 ``nonzero``, no boolean indexing, no Python ``if`` on a tensor — masks with
@@ -32,7 +33,7 @@ from ..frontend.frame import extract_features
 from ..geometry import pnp, ransac, triangulation
 from ..mapping import point_map
 from ..matching import matcher
-from ..matching.hamming import popcount32
+from ..matching.hamming import hamming_pairwise
 
 
 @dataclasses.dataclass
@@ -116,12 +117,6 @@ def init_state(cfg: VSLAMConfig, device="cuda",
         pend_valid=torch.zeros((n,), dtype=torch.bool, device=device),
         prev_flow=torch.zeros((n, 2), **f32),
     )
-
-
-def _hamming_rows(d1, d2):
-    """Row-wise Hamming distance of (N, 8) int32 descriptor bit-views."""
-    x = d1.to(torch.int64) ^ d2.to(torch.int64)
-    return popcount32(x).sum(dim=1).to(torch.int32)
 
 
 def pnp_commit_ok(prev_pose, T_pnp, scale, pose_ok, num_inliers, rmse,
@@ -243,8 +238,28 @@ def _step_impl(state: TrackerState, img, cfg: VSLAMConfig, ops: MapOps,
     GC = ops.global_capacity
     img = torch.as_tensor(img, dtype=torch.float32, device=dev)
 
-    # 1. features
-    feats = extract_features(img, cfg.frontend, H, W)
+    # 1. features; 1b. with track_carry every valid keypoint is carried at
+    # its flow-extrapolated pixel, mapped ones at their landmark's
+    # projection through the constant-velocity pose
+    if cfg.frontend.track_carry:
+        carry_uv = state.prev.uv + state.prev_flow
+        T_cw_pred = lie.inv_T(state.pose @ state.vel)
+        Xm_prev = ops.gather_pt(state.map, state.prev_map_id)[:, PT_XYZ]
+        Xc_pred = torch.einsum("ij,nj->ni", T_cw_pred[:3, :3], Xm_prev) \
+            + T_cw_pred[:3, 3]
+        zp = Xc_pred[:, 2]
+        uvw = Xc_pred @ K.T
+        uv_m = uvw[:, :2] / torch.where(torch.abs(zp) < 1e-6, 1e-6,
+                                        zp)[:, None]
+        use_m = (state.prev_map_id >= 0) & (zp > 0.1)
+        carry_uv = torch.where(use_m[:, None], uv_m, carry_uv)
+        carry_mask = (state.prev.mask
+                      & (carry_uv[:, 0] >= 0) & (carry_uv[:, 0] < W)
+                      & (carry_uv[:, 1] >= 0) & (carry_uv[:, 1] < H))
+        feats = extract_features(img, cfg.frontend, H, W, carry_uv,
+                                 carry_mask)
+    else:
+        feats = extract_features(img, cfg.frontend, H, W)
 
     # 2. frame-to-frame matching, guided by keypoint pixels
     mres = matcher.match(state.prev.desc, state.prev.mask, feats.desc,
@@ -403,7 +418,7 @@ def _step_impl(state: TrackerState, img, cfg: VSLAMConfig, ops: MapOps,
         par_ok_ins = cos_par < _cos_rad(tri.prov_parallax_deg)
     else:
         par_ok_ins = par_ok
-    id_dist = _hamming_rows(pend_desc, feats.desc)
+    id_dist = hamming_pairwise(pend_desc, feats.desc)
     id_ok = id_dist <= tri.track_id_hamming_max
     cand = (pend_valid & feats.mask & (map_id2 < 0) & inl_kp & track_ok
             & id_ok)
