@@ -63,13 +63,37 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
      frames held as phase 8 is; ``process_chunk`` over them held to that
      run frame by frame as phase 11 holds phase 8 (0 syncs in the replay
      loop); ``ops.bench_kernels``' Hamming formulations equal to K1 on
-     the card.
+     the card;
+ 14. the sharded map (``parallel/``): (a) one rank with NCCL at full
+     width, ``SLAMSystem(mesh=make_mesh("map", 1))`` over phase 8's 31
+     frames, then ``run_global_ba(mesh=)``, held to phase 8 as phase 11
+     holds its chunks (it prints whether every pose is bit-equal), <= 2
+     syncs per ordinary frame, K1/K2 launches equal to phase 8's, ms/frame
+     by kind beside phase 8's; (b) two spawned ranks sharing the card on
+     gloo (NCCL refuses two ranks on one GPU; gloo stages each collective
+     through the host), the default config (shards of 65536 slots):
+     ``associate_sharded`` on phase 4's 120000-point map, which fills
+     both shards, with cross-shard ties planted (winners of each shard
+     copied into the other), exact against the single-device
+     ``point_map.associate`` and K2's plain version; phase 8's first 12
+     frames from an empty map (so rank 1's shard stays empty) held to
+     phase 8; the same frames resumed by ``load_state`` from phase 8's
+     bootstrap with its map moved up to end 16 slots below the shard
+     boundary under distractors, so inserts cross it and both shards hold
+     tracked points: with ``shard_hypotheses=False`` equal to a one-rank
+     run from that checkpoint, with it on held to that run as to phase 8;
+     each rank's shard occupancy printed (an empty one fails where both
+     must hold points), K2 once per rank per frame; and
+     ``sharded_ba.solve_sharded`` on phase 9's window problem held to the
+     single-device solve with phase 9's bounds; (c)
+     ``parallel.multi_sequence`` on the same two ranks over two
+     full-width sequences of 4 frames, equal to their individual runs.
 
 Each phase prints its seconds. The line before the last but one is one
 JSON object per kernel (route, source, the TPU kernel it replaces, launches
 on the main path of phase 8, on the tracking step of phase 6, in phase
-11's chunks (captured launches times replays) and in phase 13's two runs,
-max |error|
+11's chunks (captured launches times replays), in phase 13's two runs and
+on phase 14a's sharded path, max |error|
 vs the plain version, kernel, plain and library times, and the bound with
 what bounds it); then the nvidia-smi line; the
 last line is ``{"ok": true, "device": {...}}``. No GPU: exits 2 and prints
@@ -78,8 +102,11 @@ no result.
 from __future__ import annotations
 
 import json
+import os
+import pickle
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -237,12 +264,29 @@ def check_k1(torch, dev, failures):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
 
+def _distractors(torch, dev, cfg, n, rng):
+    """An empty map of ``cfg``'s capacity holding ``n`` random-descriptor
+    points along the corridor (as bench.py builds its distractors), drawn
+    from ``rng``."""
+    from vslam_tpu_torch.core.types import empty_map
+    from vslam_tpu_torch.mapping import point_map
+
+    xyz = np.stack([rng.uniform(-50, 50, n), rng.uniform(-10, 10, n),
+                    rng.uniform(2.0, 180.0, n)], 1).astype(np.float32)
+    desc = rng.randint(-2**31, 2**31, (n, 8), dtype=np.int64)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return point_map.insert_points(
+        empty_map(cfg.map.capacity, cfg.map.obs_per_point, dev), t(xyz),
+        torch.zeros((n, 3), device=dev), t(desc.astype(np.int32)),
+        torch.ones(n, dtype=torch.bool, device=dev),
+        frame_idx=torch.zeros((), dtype=torch.int32, device=dev))
+
+
 def k2_inputs(torch, dev, cfg, n_map=51200, seed=1):
     """Kernel K2's inputs at the main path's shapes: capacity 131072 with
     ``n_map`` random-descriptor distractors along the corridor (as bench.py
     builds them) and 600 points with planted near-duplicate keypoints."""
     from vslam_tpu_torch.core import camera as cam
-    from vslam_tpu_torch.core.types import empty_map
     from vslam_tpu_torch.mapping import point_map
 
     rng = np.random.RandomState(seed)
@@ -250,16 +294,8 @@ def k2_inputs(torch, dev, cfg, n_map=51200, seed=1):
     N = cfg.frontend.max_keypoints
     W, H = cfg.camera.width, cfg.camera.height
     n_plant, frame = 600, 20
-    xyz = np.stack([rng.uniform(-50, 50, n_map), rng.uniform(-10, 10, n_map),
-                    rng.uniform(2.0, 180.0, n_map)], 1).astype(np.float32)
-    desc = rng.randint(-2**31, 2**31, (n_map, 8), dtype=np.int64)
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    m = empty_map(C, K, dev)
-    m = point_map.insert_points(
-        m, t(xyz), torch.zeros((n_map, 3), device=dev),
-        t(desc.astype(np.int32)), torch.ones(n_map, dtype=torch.bool,
-                                             device=dev),
-        frame_idx=torch.zeros((), dtype=torch.int32, device=dev))
+    m = _distractors(torch, dev, cfg, n_map, rng)
     Kc = torch.from_numpy(cfg.camera.K()).to(dev)
     P = cam.projection_matrix(Kc, torch.eye(4, device=dev))
     muv, vis = point_map.project_map(m, P, W, H)
@@ -854,7 +890,7 @@ def check_ba(torch, dev, s, failures):
           f"{ms_g:.2f} ms/solve ({ms_g / it:.3f} ms/iteration) (CUDA events)")
     return dict(window_ms_solve=ms_solve, window_ms_iter=ms_solve / it,
                 window_ms_robust=ms_robust, global_ms_solve=ms_g,
-                global_ms_iter=ms_g / it)
+                global_ms_iter=ms_g / it), p
 
 
 def run_bounded_map(torch, dev, failures):
@@ -1231,6 +1267,433 @@ def run_variants(torch, dev, p8, failures):
     return dict(launches=launches, ms=ms, chunk=chunk)
 
 
+def _held_to(ref, infos, poses, events, align):
+    """Disagreements of a ``process`` run with ``ref`` (a ``_process_run``
+    record, maybe longer), phase 11's tolerances: flags equal, inliers and
+    map size within 2, poses to 1e-3 up to frame ``align`` and 5e-3 after,
+    the same BA event outcomes. Returns (disagreements, per-frame pose
+    error)."""
+    bad = []
+    n = len(infos)
+    for i, (x, y) in enumerate(zip(ref["infos"][1:n], infos[1:]), 1):
+        if any(x[k] != y[k] for k in ("keyframe", "ran_ba",
+                                      "ran_maintenance", "success")):
+            bad.append(f"frame {i} flags")
+        if any(abs(x[k] - y[k]) > 2 for k in ("num_inliers", "map_size")):
+            bad.append(f"frame {i} inliers {x['num_inliers']}/"
+                       f"{y['num_inliers']} map {x['map_size']}/"
+                       f"{y['map_size']}")
+    err = np.abs(poses - ref["poses"][:n]).max(axis=(1, 2))
+    if err[:align + 1].max() > 1e-3 or err.max() > 5e-3:
+        bad.append(f"poses off by {err.max():.2e}")
+    outcome = lambda ev: [(e.get("skipped"), e["ba_result_accepted"])
+                          for e in ev if e["frame"] < n]
+    if outcome(events) != outcome(ref["events"]):
+        bad.append(f"BA events {outcome(events)} vs "
+                   f"{outcome(ref['events'])}")
+    return bad, err
+
+
+def run_sharded_one_rank(torch, dev, p8, launches8, ms8, failures):
+    """Phase 14a: the sharded-map mode on one rank with NCCL at full width
+    (every collective on the card): ``SLAMSystem(mesh=)`` over phase 8's 31
+    frames (``_process_run``: <= 2 syncs per ordinary frame), held to phase
+    8; then ``run_global_ba(mesh=)``. Returns (the mesh, launches, ms/frame
+    by kind)."""
+    import torch.distributed as dist
+
+    from vslam_tpu_torch.config import VSLAMConfig
+    from vslam_tpu_torch.parallel import mesh as mesh_mod
+    from vslam_tpu_torch.pipeline.slam import SLAMSystem
+
+    cfg = VSLAMConfig()
+    mesh = mesh_mod.make_mesh(cfg.mesh.axis_map, 1)
+    print(f"14a: {mesh}, backend {dist.get_backend()}")
+    s = SLAMSystem(cfg, dev, mesh=mesh)
+    rec, launches, ms = _process_run(torch, s, p8["frames"], p8["gt"],
+                                     "sharded, 1 rank (NCCL)", failures)
+    align = cfg.pipeline.keyframe_every * cfg.pipeline.local_ba_every
+    bad, err = _held_to(p8, rec["infos"], rec["poses"], rec["events"], align)
+    print(f"14a vs phase 8: max |pose diff| {err[:align + 1].max():.2e} to "
+          f"frame {align}, {err.max():.2e} after; every pose bit-equal "
+          f"{np.array_equal(rec['poses'], p8['poses'])}; disagreements "
+          f"{bad}")
+    failures.extend(f"14a vs phase 8: {b}" for b in bad)
+    if launches != launches8:
+        failures.append(f"14a launches {launches} vs phase 8's {launches8}")
+    for k, (v, n) in ms.items():
+        if v is not None:
+            print(f"14a process {k}: {v:.3f} ms/frame (n={n}), phase 8 "
+                  f"{ms8[k][0]:.3f}")
+    t0 = time.perf_counter()
+    stats = s.run_global_ba(mesh=mesh, axis_name=cfg.mesh.axis_map)
+    torch.cuda.synchronize()
+    init, fin = float(stats.initial_cost), float(stats.final_cost)
+    cov = s.last_global_ba_coverage
+    print(f"14a run_global_ba(mesh=): {1e3 * (time.perf_counter() - t0):.1f}"
+          f" ms (host clock), cost {init:.2f} -> {fin:.2f}, coverage {cov}")
+    if not fin < init or cov["dropped_points"] or cov["dropped_obs"]:
+        failures.append(f"14a global BA: {init} -> {fin}, {cov}")
+    if not np.isfinite(s.keyframe_poses()).all():
+        failures.append("14a: non-finite keyframe poses after global BA")
+    return mesh, launches, ms
+
+
+# phase 14b/c: phase 8's first frames, the multi-sequence run's length
+N_TWO_RANKS, MS_FRAMES = 12, 4
+# 14b's resumed runs: the slots of shard 0 left free above the moved
+# bootstrap map, so the first insert of more crosses into shard 1
+PRELOAD_GAP = 16
+
+
+def _strip(infos):
+    return [{k: v for k, v in x.items() if k not in ("wall_s", "t")}
+            for x in infos]
+
+
+def _timed_run(torch, s, frames):
+    """``s.process`` over ``frames``, launch counters reset just before and
+    read just after, the host clock per frame between two
+    ``synchronize()``. A system loaded from a checkpoint gets an empty
+    record for its bootstrap frame, so that infos[i] is frame i. Returns
+    the run's record and this rank's shard occupancy."""
+    from vslam_tpu_torch.ops import associate as k2
+    from vslam_tpu_torch.ops import hamming
+
+    infos = [] if s.state is None else [{}]
+    hamming.launches = 0
+    k2.launches = 0
+    wall = []
+    for f in frames:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        infos.append(s.process(f))
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    tracked = [w for w, x in zip(wall, infos[-len(wall):])
+               if "num_matches" in x]
+    m = s.state.map
+    return dict(
+        infos=_strip(infos), poses=s.poses(),
+        events=[r for r in s.metrics.records if r.get("kind") == "ba"],
+        launches={"hamming": hamming.launches, "associate": k2.launches},
+        ms=1e3 * float(np.mean(tracked)),
+        shard=(m.capacity, m.desc.shape[0]), local_alive=int(m.alive.sum()))
+
+
+def _preloaded_checkpoint(torch, dev, cfg, frame0, path):
+    """Phase 8's bootstrap with its map moved up to end PRELOAD_GAP slots
+    below the boundary of two shards, the slots under it holding corridor
+    distractors; written by ``save_state``. Returns the number moved by."""
+    from vslam_tpu_torch.core.types import MapState
+    from vslam_tpu_torch.pipeline.slam import SLAMSystem
+    from vslam_tpu_torch.utils import checkpoint
+
+    s = SLAMSystem(cfg, dev)
+    s.process(frame0)
+    st, m = s.state, s.state.map
+    n, K = int(m.size), m.obs_slots
+    shift = cfg.map.capacity // 2 - PRELOAD_GAP - n
+    pre = _distractors(torch, dev, cfg, shift,
+                       np.random.RandomState(4))
+    rows = {}
+    for f in ("pt", "desc_count", "alive", "last_seen", "prov"):
+        rows[f] = getattr(pre, f).clone()
+        rows[f][shift:shift + n] = getattr(m, f)[:n]
+    rows["desc"] = pre.desc.clone()
+    rows["desc"][shift * K:(shift + n) * K] = m.desc[:n * K]
+    pid = st.prev_map_id
+    s.state = st.replace(map=MapState(size=m.size + shift, **rows),
+                         prev_map_id=torch.where(pid >= 0, pid + shift, pid))
+    checkpoint.save_state(path, s)
+    return shift
+
+
+def _plant_ties(torch, m, pid, Cs, n=64, seed=3):
+    """``m`` with ``n`` winners (ids in ``pid``) of each shard copied into
+    slots of the other shard that won nothing: every keypoint that hits
+    one of them meets two equal candidates, one in each shard. Returns the
+    map and the (winner, copy) slot pairs."""
+    won = np.unique(pid[pid >= 0].cpu().numpy())
+    idle = np.setdiff1d(np.arange(int(m.size)), won)
+    rng = np.random.RandomState(seed)
+    pairs = []
+    for first in (True, False):
+        src = won[(won < Cs) == first][:n]
+        elsewhere = idle[(idle < Cs) != first]
+        pairs.append(np.stack([src, rng.choice(elsewhere, len(src),
+                                               replace=False)], 1))
+    pairs = np.concatenate(pairs)
+    src, dst = (torch.from_numpy(pairs[:, i]).to(m.alive.device)
+                for i in (0, 1))
+    rows = {}
+    for f in ("pt", "desc_count", "alive", "last_seen", "prov"):
+        rows[f] = getattr(m, f).clone()
+        rows[f][dst] = rows[f][src]
+    desc = m.desc.reshape(m.capacity, m.obs_slots, 8).clone()
+    desc[dst] = desc[src]
+    return m.replace(desc=desc.reshape(-1, 8), **rows), pairs
+
+
+def _cross_shard_association(torch, dev, cfg, mesh):
+    """14b's association across the shard boundary, on this rank: phase
+    4's 120000-point map (capacity 131072, so both 65536-slot shards hold
+    points) with cross-shard ties planted (``_plant_ties``);
+    ``associate_sharded`` on this rank's shard against the single-device
+    ``point_map.associate`` and K2's plain version on the whole map. Returns
+    the verdicts, the planted ties met, each shard's winners and this
+    rank's occupancy."""
+    from vslam_tpu_torch.core import camera as cam
+    from vslam_tpu_torch.mapping import point_map
+    from vslam_tpu_torch.ops import associate as k2
+    from vslam_tpu_torch.parallel import mesh as mesh_mod
+    from vslam_tpu_torch.parallel import sharded_map
+
+    axis = cfg.mesh.axis_map
+    W, H = cfg.camera.width, cfg.camera.height
+    kp, m = k2_inputs(torch, dev, cfg, K2_SIZES[1], 2)
+    P = cam.projection_matrix(torch.from_numpy(cfg.camera.K()).to(dev),
+                              torch.eye(4, device=dev))
+    args = (P, kp["kp_uv"], kp["kp_desc"], kp["kp_free"], cfg.map,
+            cfg.matching, W, H)
+    single = lambda mm: point_map.associate(mm, *args,
+                                            frame_idx=kp["frame_idx"])
+    Cs = cfg.map.capacity // mesh_mod.axis_size(mesh, axis)
+    m, pairs = _plant_ties(torch, m, single(m).point_id, Cs)
+    want = single(m)
+    muv, vis = point_map.project_map(m, P, W, H)
+    plain = k2.decode(k2.associate_plain(
+        muv, vis, m.last_seen, m.desc_count, m.desc, m.size,
+        kp["frame_idx"], kp["kp_uv"], kp["kp_free"], kp["kp_desc"],
+        **point_map.gates(cfg.matching), block=cfg.map.block_size))
+    local = sharded_map.shard_map_state(mesh, axis, m)
+    got = sharded_map.associate_sharded(mesh, axis, local, *args,
+                                        frame_idx=kp["frame_idx"])
+    pid, d = want.point_id, want.distance
+    start = mesh_mod.axis_index(mesh, axis) * Cs
+    twins = torch.from_numpy(pairs.reshape(-1)).to(dev, pid.dtype)
+    return dict(
+        single=bool(torch.equal(got.point_id, pid)
+                    and torch.equal(got.distance, d)),
+        plain=bool(torch.equal(plain[0], pid) and torch.equal(plain[1], d)),
+        ties=int(torch.isin(pid, twins).sum()),
+        wins=(int(((pid >= 0) & (pid < Cs)).sum()), int((pid >= Cs).sum())),
+        local_alive=int(local.alive.sum()),
+        local_cursor=min(max(int(m.size) - start, 0), Cs))
+
+
+def _sharded_rank(rank, init, payload, out_dir):
+    """One of phase 14b's two ranks: both share card 0, on gloo."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from vslam_tpu_torch import interop
+    from vslam_tpu_torch.config import VSLAMConfig
+    from vslam_tpu_torch.optimizer.ba import BAProblem
+    from vslam_tpu_torch.parallel import (mesh as mesh_mod, multi_sequence,
+                                          multihost, sharded_ba)
+    from vslam_tpu_torch.pipeline.slam import SLAMSystem
+    from vslam_tpu_torch.utils import checkpoint
+
+    multihost.initialize(init, world_size=2, rank=rank, local_rank=0,
+                         device_type="cuda", backend="gloo")
+    dev = torch.device("cuda", 0)
+    cfg = VSLAMConfig()
+    mesh = mesh_mod.make_mesh(cfg.mesh.axis_map, 2, device_type="cuda",
+                              backend="gloo")
+    res = {"backend": dist.get_backend(mesh.get_group(cfg.mesh.axis_map)),
+           "assoc": _cross_shard_association(torch, dev, cfg, mesh)}
+    off = cfg.replace(mesh=dataclasses.replace(cfg.mesh,
+                                               shard_hypotheses=False))
+    frames = torch.from_numpy(payload["frames"]).to(dev)
+    res["hyp"] = _timed_run(torch, SLAMSystem(cfg, dev, mesh=mesh), frames)
+    for name, c in (("pre_off", off), ("pre_hyp", cfg)):
+        s = SLAMSystem(c, dev, mesh=mesh)
+        checkpoint.load_state(payload["ckpt"], s)
+        res[name] = _timed_run(torch, s, frames[1:])
+    problem = interop.from_jax(payload["ba"], BAProblem, dev)
+    K = torch.from_numpy(payload["K"]).to(dev)
+    solve = lambda: sharded_ba.solve_sharded(mesh, cfg.mesh.axis_map,
+                                             problem, K, cfg.ba)
+    solved, st = solve()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        solve()
+    torch.cuda.synchronize()
+    res["ba"] = dict(T_cw=solved.T_cw.cpu().numpy(),
+                     points=solved.points.cpu().numpy(),
+                     ms=1e3 * (time.perf_counter() - t0) / 3,
+                     **{k: getattr(st, k).cpu().numpy() for k in st._fields})
+    dmesh = mesh_mod.make_mesh("data", 2, device_type="cuda", backend="gloo")
+    seqs = torch.from_numpy(payload["seqs"]).to(dev)
+    bst = multi_sequence.batched_bootstrap(seqs[:, 0], cfg, dmesh, "data",
+                                           seeds=payload["seeds"],
+                                           device=dev)
+    poses = []
+    for fi in range(1, seqs.shape[1]):
+        bst, o = multi_sequence.batched_track_step(bst, seqs[:, fi], cfg,
+                                                   dmesh, "data")
+        poses.append(o.pose.cpu().numpy())
+    res["multiseq"] = np.stack(poses, axis=1)
+    dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(res, f)
+
+
+def _check_two_ranks(ranks, p8, ref, shift, n, cfg, failures):
+    """14b's verdicts on the ranks' association and SLAM runs."""
+    Cs = cfg.map.capacity // 2
+    align = cfg.pipeline.keyframe_every * cfg.pipeline.local_ba_every
+    cursor = [Cs - PRELOAD_GAP] + [
+        x["map_size"] for x in ref["infos"][1:]]
+    crossed = [i for i in range(1, len(cursor))
+               if cursor[i - 1] < Cs < cursor[i]]
+    print(f"14b resumed runs: bootstrap map moved up {shift} slots under "
+          f"corridor distractors, cursor {cursor[0]} of a {Cs}-slot shard; "
+          f"cursor by frame {cursor[1:]}; an insert crossed the shard "
+          f"boundary at frame(s) {crossed}")
+    if not crossed:
+        failures.append("14b: no insert crossed the shard boundary")
+    for r, res in enumerate(ranks):
+        a = res["assoc"]
+        print(f"14b rank {r}: associate_sharded on phase 4's 120000-point "
+              f"map, shard of {Cs} slots: local cursor {a['local_cursor']}, "
+              f"{a['local_alive']} live points; equal to the single-device "
+              f"point_map.associate {a['single']} and to K2's plain version "
+              f"{a['plain']}; winners in shard 0 / 1 {a['wins']}, keypoints "
+              f"won through a planted cross-shard tie {a['ties']}")
+        if not (a["single"] and a["plain"]):
+            failures.append(f"14b rank {r}: sharded association differs")
+        if not (a["local_alive"] and a["ties"] and min(a["wins"])):
+            failures.append(f"14b rank {r}: the association check left a "
+                            f"shard idle: {a}")
+        h = res["hyp"]
+        bad, err = _held_to(p8, h["infos"], h["poses"], h["events"], align)
+        print(f"14b rank {r}: from an empty map, shard_hypotheses on vs "
+              f"phase 8 ({n} frames): max |pose diff| {err.max():.2e}, "
+              f"disagreements {bad}; {h['local_alive']} live points in "
+              f"this rank's shard (rank 1's stays empty below "
+              f"{Cs} points); launches {h['launches']}; {h['ms']:.2f} "
+              "ms/frame (host clock; gloo collectives)")
+        failures.extend(f"14b rank {r} vs phase 8: {b}" for b in bad)
+        o, hy = res["pre_off"], res["pre_hyp"]
+        same = (np.array_equal(o["poses"], ref["poses"])
+                and o["infos"] == ref["infos"])
+        bad, err = _held_to(ref, hy["infos"], hy["poses"], hy["events"],
+                            align)
+        print(f"14b rank {r}: resumed from the moved map, "
+              f"{o['local_alive']} / {hy['local_alive']} live points in "
+              f"this rank's shard at the end; shard_hypotheses off equal to "
+              f"the one-rank run {same} (max |pose diff| "
+              f"{np.abs(o['poses'] - ref['poses']).max():.2e}); on: max "
+              f"|pose diff| {err.max():.2e}, disagreements {bad}; launches "
+              f"{o['launches']} / {hy['launches']}; {o['ms']:.2f} / "
+              f"{hy['ms']:.2f} ms/frame")
+        if not same:
+            failures.append(f"14b rank {r}: resumed shard_hypotheses=False "
+                            "run differs from the one-rank run")
+        failures.extend(f"14b rank {r} resumed vs one rank: {b}"
+                        for b in bad)
+        for name in ("hyp", "pre_off", "pre_hyp"):
+            x = res[name]
+            if x["launches"] != {"hamming": n - 1, "associate": n - 1}:
+                failures.append(f"14b rank {r} {name}: launches "
+                                f"{x['launches']} in {n - 1} frames")
+            if x["shard"][0] != Cs:
+                failures.append(f"14b rank {r}: shard of {x['shard'][0]} "
+                                "slots")
+        if not (o["local_alive"] and hy["local_alive"]):
+            failures.append(f"14b rank {r}: its shard held no point in the "
+                            "resumed runs")
+
+
+def run_sharded_two_ranks(torch, dev, mesh1, p8, problem, failures):
+    """Phases 14b and 14c: two spawned ranks on the one card with gloo (see
+    the module docstring), held to phase 8, to one-rank runs on ``mesh1``
+    from the same checkpoint, to the single-device association and BA
+    solve of phase 9's window problem, and to individual tracker runs."""
+    import dataclasses
+
+    from vslam_tpu_torch import interop
+    from vslam_tpu_torch.config import VSLAMConfig
+    from vslam_tpu_torch.optimizer import ba
+    from vslam_tpu_torch.parallel import multihost
+    from vslam_tpu_torch.pipeline import tracker
+    from vslam_tpu_torch.pipeline.slam import SLAMSystem
+    from vslam_tpu_torch.utils import checkpoint
+
+    cfg = VSLAMConfig()
+    n = N_TWO_RANKS
+    frames = p8["frames"][:n]
+    off = cfg.replace(mesh=dataclasses.replace(cfg.mesh,
+                                               shard_hypotheses=False))
+    Kd = tracker._K(cfg, dev)
+    want_p, want = ba.solve(problem, Kd, cfg.ba)
+    seeds = [5, 6]
+    seqs = np.stack([_render(cfg, MS_FRAMES, BENCH_SCENE, 1.0, sd)[0]
+                     for sd in seeds])
+    singles = []
+    for sq, sd in zip(seqs, seeds):
+        st = tracker.bootstrap(torch.from_numpy(sq[0]).to(dev), cfg, dev,
+                               seed=sd)
+        ps = []
+        for f in sq[1:]:
+            st, o = tracker.track_step(st, torch.from_numpy(f).to(dev), cfg)
+            ps.append(o.pose.cpu().numpy())
+        singles.append(np.stack(ps))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = os.path.join(d, "moved")
+        shift = _preloaded_checkpoint(torch, dev, off, frames[0], ckpt)
+        s = SLAMSystem(off, dev, mesh=mesh1)
+        checkpoint.load_state(ckpt, s)
+        ref = _timed_run(torch, s, frames[1:])
+        del s
+        payload = dict(frames=frames.cpu().numpy(),
+                       ba=interop.to_numpy(_moved(problem, "cpu")),
+                       K=Kd.cpu().numpy(), seqs=seqs, seeds=seeds, ckpt=ckpt)
+        codes = multihost.spawn(_sharded_rank, 2, (payload, d), timeout=600)
+        if any(codes):
+            raise RuntimeError(f"14b: the ranks exited with {codes}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    print(f"14b: two spawned ranks on one card, backend "
+          f"{ranks[0]['backend']} (chosen by name: NCCL refuses two ranks "
+          f"on one GPU; gloo stages every collective through the host), "
+          f"{time.perf_counter() - t0:.1f} s with the one-rank reference "
+          "and start-up")
+    _check_two_ranks(ranks, p8, ref, shift, n, cfg, failures)
+    for r, res in enumerate(ranks):
+        b = res["ba"]
+        gi, gf = float(b["initial_cost"]), float(b["final_cost"])
+        wi, wf = float(want.initial_cost), float(want.final_cost)
+        same_acc = np.array_equal(b["accepted"], want.accepted.cpu().numpy())
+        dT = np.abs(b["T_cw"] - want_p.T_cw.cpu().numpy()).max()
+        print(f"14b rank {r}: solve_sharded {problem.num_cams}x"
+              f"{problem.points.shape[0]}x{problem.obs_cam.shape[1]} over 2 "
+              f"ranks (collectives through gloo): cost {gi:.4f} -> "
+              f"{gf:.4f}, single-device {wi:.4f} -> {wf:.4f}; accept flags "
+              f"equal {same_acc}; max |T_cw diff| {dT:.2e}; {b['ms']:.2f} "
+              "ms/solve (host clock)")
+        if not (abs(gi - wi) <= 1e-4 * abs(wi)
+                and abs(gf - wf) <= 1e-3 * abs(wf) and same_acc):
+            failures.append(f"14b rank {r}: sharded BA vs single-device")
+        ms_same = all(np.array_equal(res["multiseq"][i], singles[i])
+                      for i in range(len(seeds)))
+        print(f"14c rank {r}: multi_sequence, 2 sequences x {MS_FRAMES} "
+              f"frames over 2 ranks, equal to the individual runs "
+              f"{ms_same}")
+        if not ms_same:
+            failures.append(f"14c rank {r}: multi-sequence poses differ "
+                            "from the individual runs")
+    return dict(ms_frame=ranks[0]["hyp"]["ms"], ba_ms=ranks[0]["ba"]["ms"])
+
+
 def main() -> int:
     import torch
 
@@ -1282,7 +1745,7 @@ def main() -> int:
     system, launches, ms_kind, ms_global, p8 = run_slam_path(torch, dev,
                                                              failures)
     phase_done(8)
-    ba_ms = check_ba(torch, dev, system, failures)
+    ba_ms, window_problem = check_ba(torch, dev, system, failures)
     del system
     phase_done(9)
     p10 = run_bounded_map(torch, dev, failures)
@@ -1293,8 +1756,15 @@ def main() -> int:
     run_rendered_chunks(torch, dev, failures)
     phase_done(12)
     variants = run_variants(torch, dev, p8, failures)
-    del p8
     phase_done(13)
+    mesh1, sharded_launches, ms_sharded = run_sharded_one_rank(
+        torch, dev, p8, launches, ms_kind, failures)
+    phase_done("14a")
+    two = run_sharded_two_ranks(torch, dev, mesh1, p8, window_problem,
+                                failures)
+    del p8, window_problem
+    torch.distributed.destroy_process_group()
+    phase_done("14b-c")
 
     # launches: the SLAM path's (phase 8); the tracking step's own run
     # (phase 6) is kept beside it
@@ -1307,7 +1777,8 @@ def main() -> int:
              launches_chunked=chunked["launches"]["hamming"],
              launches_variants=variants["launches"]["hamming"],
              launches_variants_chunked=variants["chunk"]["launches"][
-                 "hamming"], **k1),
+                 "hamming"],
+             launches_sharded=sharded_launches["hamming"], **k1),
         dict(name="associate", route="cuda",
              source="vslam_tpu_torch/csrc/associate.cu",
              replaces="vslam_tpu/ops/pallas_associate.py:71",
@@ -1316,7 +1787,8 @@ def main() -> int:
              launches_chunked=chunked["launches"]["associate"],
              launches_variants=variants["launches"]["associate"],
              launches_variants_chunked=variants["chunk"]["launches"][
-                 "associate"], **k2),
+                 "associate"],
+             launches_sharded=sharded_launches["associate"], **k2),
     ]
     for f in failures:
         print("FAIL:", f)
@@ -1335,7 +1807,13 @@ def main() -> int:
                       for k, v in variants["ms"].items() if v[0] is not None)
           + f", chunked {variants['chunk']['ms_frame']:.3f} ms/frame, "
           f"capture {variants['chunk']['capture_s']:.2f} s, pool peak "
-          f"{variants['chunk']['pool_mib']:.1f} MiB ({name}; {smi})")
+          f"{variants['chunk']['pool_mib']:.1f} MiB; sharded (phase 14a, "
+          "NCCL, 1 rank) process "
+          + ", ".join(f"{k} {v[0]:.3f} (n={v[1]})"
+                      for k, v in ms_sharded.items() if v[0] is not None)
+          + f"; two ranks on gloo (phase 14b, a check, not a rate) "
+          f"{two['ms_frame']:.3f} ms/frame, BA {two['ba_ms']:.3f} ms/solve "
+          f"({name}; {smi})")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -71,11 +71,16 @@ def test_eval_prints_the_reference_numbers(tmp_path, capsys):
     assert want["ate_rmse"] > 0.01                                # premise
 
 
-def test_mesh_is_refused():
+def test_mesh_is_refused(monkeypatch):
+    """``--platform`` is not the port's flag; ``--mesh N`` on CUDA with
+    fewer than N devices (one, whatever the host has) exits 2 before
+    spawning anything."""
     with pytest.raises(SystemExit):
         cli.main(["run", "--synthetic", "--mesh", "4", "--platform", "cpu"])
-    assert cli.main(["run", "--synthetic", "--mesh", "4",
-                     "--device", "cpu"]) == 2
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert cli.main(["run", "--synthetic", "--mesh", "2",
+                     "--device", "cuda"]) == 2
 
 
 def _args(**kw):

@@ -239,3 +239,29 @@ def test_chip_smoke_refuses_without_a_gpu(tmp_path):
                        env=dict(env, PYTHONPATH=""), capture_output=True,
                        text=True, timeout=300)
     assert r.returncode != 0 and '"ok"' not in r.stdout
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_map_shards_concatenate_to_the_map(D):
+    """``interop.map_shard``: a reference map's shards, concatenated along
+    every point-indexed field, equal ``from_jax`` of the whole map; the
+    cursor is each shard's, replicated."""
+    from vslam_tpu.core.types import empty_map as jempty_map
+    from vslam_tpu.mapping import point_map as jpoint_map
+    from vslam_tpu_torch.core.types import MapState
+
+    rng = np.random.RandomState(D)
+    n = 300
+    m = jpoint_map.insert_points(
+        jempty_map(512, 3), jnp.asarray(rng.randn(n, 3).astype(np.float32)),
+        jnp.asarray(rng.rand(n, 3).astype(np.float32)),
+        jnp.asarray(rng.randint(0, 2 ** 32, (n, 8), dtype=np.uint32)),
+        jnp.asarray(rng.rand(n) < 0.9), 4)
+    tree = jax.tree_util.tree_map(np.asarray, m)
+    whole = interop.from_jax(tree, MapState)
+    shards = [interop.map_shard(tree, i, D) for i in range(D)]
+    for f in ("pt", "desc", "desc_count", "alive", "last_seen", "prov"):
+        got = torch.cat([getattr(s, f) for s in shards])
+        assert torch.equal(got, getattr(whole, f)), f
+    assert all(s.capacity == 512 // D and s.obs_slots == 3 for s in shards)
+    assert all(int(s.size) == int(whole.size) > 0 for s in shards)

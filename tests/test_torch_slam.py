@@ -52,8 +52,9 @@ def _frames(n, seed=2):
     return synthetic.render_sequence(K, poses, scene, W, H), poses
 
 
-def _injected_step(state, img, cfg):
+def _injected_step(state, img, cfg, mesh=None, map_axis="map"):
     """track_step with the reference's RANSAC samples for this frame."""
+    assert mesh is None
     ops = tracker.default_map_ops(cfg, cfg.camera.width, cfg.camera.height)
     return tracker._step_impl(state, img, cfg, ops,
                               pose_fn=_reference_samples(

@@ -10,8 +10,13 @@ Port of ``vslam_tpu/cli.py`` with the same subcommands, flags and outputs;
     python -m vslam_tpu_torch.cli eval --est traj.txt --gt gt.txt
 
 Outputs: TUM + KITTI trajectories, PNG/HTML/PLY map renders, JSONL metrics,
-and ATE/RPE against ground truth when available. ``--mesh`` (the map
-sharded across devices) is not ported yet and exits 2.
+and ATE/RPE against ground truth when available.
+
+``run --mesh N`` shards the map across N ranks (BASELINE config 4). Under
+torchrun (``torchrun --nproc-per-node N -m vslam_tpu_torch.cli run --mesh
+N ...``) each rank joins the group from torchrun's environment; otherwise
+the command spawns the N ranks itself, on one host. NCCL needs one GPU per
+rank; ``--device cpu`` runs the ranks on gloo. Rank 0 writes the outputs.
 """
 from __future__ import annotations
 
@@ -38,15 +43,66 @@ def _build_cfg(args, camera=None):
 
 
 def cmd_run(args):
+    if "WORLD_SIZE" in os.environ and args.mesh:
+        from .parallel import multihost
+        multihost.initialize(device_type=args.device)
+        return _run(args)
+    if args.mesh and args.device == "cuda":
+        import torch
+        n = torch.cuda.device_count()
+        if n < args.mesh:
+            print(f"--mesh {args.mesh} needs {args.mesh} devices, have {n}",
+                  file=sys.stderr)
+            return 2
+    return _spawn(args) if args.mesh > 1 else _run(args)
+
+
+def _spawn(args):
+    """Run ``args`` on ``args.mesh`` spawned ranks of this host."""
+    from .parallel import multihost
+
+    codes = multihost.spawn(_rank_main, args.mesh, (args,))
+    if any(codes):
+        print(f"--mesh {args.mesh}: the ranks exited with {codes}",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
+def _rank_main(rank: int, init_method: str, args):
+    """One spawned rank: join the group, run, leave."""
+    import torch
+    import torch.distributed as dist
+
+    from .parallel import multihost
+    if args.device == "cpu":
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.mesh))
+    multihost.initialize(init_method, world_size=args.mesh, rank=rank,
+                         local_rank=rank, device_type=args.device)
+    try:
+        rc = _run(args)
+    finally:
+        dist.destroy_process_group()
+    sys.exit(rc)
+
+
+def _run(args):
     from .pipeline.slam import SLAMSystem
     from .utils import evaluate, trajectory
     from .viz import render
 
+    mesh = None
     if args.mesh:
-        print("--mesh: the map sharded across devices is not ported yet "
-              "(ROADMAP queue 1 item 12)", file=sys.stderr)
-        return 2
-    os.makedirs(args.out, exist_ok=True)
+        from .parallel import multihost
+        mesh = multihost.global_mesh(_build_cfg(args).mesh.axis_map,
+                                     device_type=args.device)
+        if mesh.size() != args.mesh:
+            print(f"--mesh {args.mesh}: the process group has "
+                  f"{mesh.size()} ranks", file=sys.stderr)
+            return 2
+    rank0 = mesh is None or mesh.get_rank() == 0
+    if rank0:
+        os.makedirs(args.out, exist_ok=True)
     gt_poses = None
 
     if args.synthetic:
@@ -103,9 +159,10 @@ def cmd_run(args):
         n_total = len(ds)
 
     sys_ = SLAMSystem(cfg, args.device,
-                      metrics_path=os.path.join(args.out, "metrics.jsonl"),
-                      enable_ba=not args.no_ba, seed=args.seed)
-    if args.save_frames:
+                      metrics_path=os.path.join(args.out, "metrics.jsonl")
+                      if rank0 else None,
+                      enable_ba=not args.no_ba, seed=args.seed, mesh=mesh)
+    if args.save_frames and rank0:
         os.makedirs(os.path.join(args.out, "frames"), exist_ok=True)
     stream = None
     limit = args.frames if args.frames else n_total
@@ -113,7 +170,7 @@ def cmd_run(args):
         if i >= limit:
             break
         info = sys_.process(img)
-        if args.save_frames and sys_.last_output is not None:
+        if args.save_frames and rank0 and sys_.last_output is not None:
             from .viz.frames import annotate_frame
             o = sys_.last_output
             host = lambda t: t.detach().cpu().numpy()
@@ -125,11 +182,13 @@ def cmd_run(args):
                 path=os.path.join(args.out, "frames", f"{i:06d}.png"),
             )
         if args.snapshot_every and i > 0 and i % args.snapshot_every == 0:
-            if stream is None:
-                from .viz.stream import MapStream
-                stream = MapStream(args.out)
-            stream.update(sys_.snapshot(), frame=i)
-        if args.verbose and "num_matches" in info:
+            snap = sys_.snapshot()           # every rank: it gathers the map
+            if rank0:
+                if stream is None:
+                    from .viz.stream import MapStream
+                    stream = MapStream(args.out)
+                stream.update(snap, frame=i)
+        if args.verbose and rank0 and "num_matches" in info:
             print(f"frame {info['frame']:4d}: matches={info['num_matches']:4d} "
                   f"inliers={info['num_inliers']:4d} map={info['map_size']:6d} "
                   f"{'KF' if info.get('keyframe') else '  '}"
@@ -137,13 +196,16 @@ def cmd_run(args):
 
     if args.global_ba and sys_._kf_count >= 3:
         stats = sys_.run_global_ba()
-        print(f"global BA: cost {float(stats.initial_cost):.1f} -> "
-              f"{float(stats.final_cost):.1f}")
+        if rank0:
+            print(f"global BA: cost {float(stats.initial_cost):.1f} -> "
+                  f"{float(stats.final_cost):.1f}")
 
+    snap = sys_.snapshot()
+    if not rank0:
+        return 0
     poses = sys_.poses()
     trajectory.save_tum(os.path.join(args.out, "trajectory_tum.txt"), poses)
     trajectory.save_kitti(os.path.join(args.out, "trajectory_kitti.txt"), poses)
-    snap = sys_.snapshot()
     render.render_png(snap, os.path.join(args.out, "map.png"))
     render.save_html(snap, os.path.join(args.out, "map.html"))
     render.save_ply(snap, os.path.join(args.out, "map.ply"))
@@ -198,8 +260,10 @@ def main(argv=None):
     r.add_argument("--small", action="store_true", help="small/fast config")
     r.add_argument("--no-ba", action="store_true")
     r.add_argument("--mesh", type=int, default=0,
-                   help="shard the map's point axis across N devices "
-                        "(not ported yet: exits 2)")
+                   help="shard the map's point axis across N ranks "
+                        "(BASELINE config 4; association runs shard-local "
+                        "with a cross-shard arg-best): joins torchrun's "
+                        "group, or spawns N ranks on this host")
     r.add_argument("--global-ba", action="store_true",
                    help="run global BA over all keyframes at end of sequence")
     r.add_argument("--seed", type=int, default=0)

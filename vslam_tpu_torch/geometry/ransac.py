@@ -132,15 +132,22 @@ def ransac_fundamental_from_samples(idx, uv1, uv2, valid_mask,
         lambda F, d: epipolar.sampson_error(F, *d), (uv1, uv2), (uv1, uv2),
         valid_mask, inlier_threshold, min_inliers)
     if refine:
-        F = _weighted_eight_point(uv1, uv2, result.inliers.to(uv1.dtype))
-        inl = (epipolar.sampson_error(F, uv1, uv2) <= inlier_threshold) \
-            & valid_mask
-        better = inl.sum() >= result.num_inliers
-        inl = torch.where(better, inl, result.inliers)
-        result = result._replace(
-            model=torch.where(better, F, result.model), inliers=inl,
-            num_inliers=inl.sum().to(torch.int32))
+        result = _polish_fundamental(result, uv1, uv2, valid_mask,
+                                     inlier_threshold)
     return result
+
+
+def _polish_fundamental(result: RansacResult, uv1, uv2, valid_mask,
+                        inlier_threshold: float) -> RansacResult:
+    """One weighted 8-point fit on ``result``'s inliers, kept when it holds
+    at least as many (``success`` stays the unpolished verdict)."""
+    F = _weighted_eight_point(uv1, uv2, result.inliers.to(uv1.dtype))
+    inl = (epipolar.sampson_error(F, uv1, uv2) <= inlier_threshold) \
+        & valid_mask
+    better = inl.sum() >= result.num_inliers
+    inl = torch.where(better, inl, result.inliers)
+    return result._replace(model=torch.where(better, F, result.model),
+                           inliers=inl, num_inliers=inl.sum().to(torch.int32))
 
 
 def ransac_pose(gen, uv1, uv2, valid_mask, K, num_hypotheses: int = 2048,
@@ -187,9 +194,12 @@ def _truncated_sum(resid, thr):
 
 
 def _pose_stage1(Fs, uv1, uv2, valid_mask, K, inlier_threshold,
-                 verify_stride, vote_stride):
+                 verify_stride, vote_stride, score_norm_fn=None):
     """Subset scoring of a batch of F hypotheses.
-    Returns (combined (H,) selection score, Rs (H,4,3,3), ts (H,4,3))."""
+    Returns (combined (H,) selection score, Rs (H,4,3,3), ts (H,4,3)).
+    ``score_norm_fn`` reduces the local ``score.max()`` normalizer: the
+    hypothesis-sharded caller passes a ``pmax`` so every rank's scores
+    share the global normalizer."""
     sv = max(int(verify_stride), 1)
     uv1v, uv2v = uv1[::sv], uv2[::sv]
     maskv = valid_mask[::sv]
@@ -206,20 +216,29 @@ def _pose_stage1(Fs, uv1, uv2, valid_mask, K, inlier_threshold,
     counts_v = good.sum(dim=2).amax(dim=1)
 
     score_v = _truncated_sum(resid_v, inlier_threshold)
-    combined_v = counts_v.float() - score_v / (score_v.max() + 1.0)
+    norm = score_v.max()
+    if score_norm_fn is not None:
+        norm = score_norm_fn(norm)
+    combined_v = counts_v.float() - score_v / (norm + 1.0)
     return combined_v, Rs, ts
 
 
-def _pose_stage2(Fk, Rk, tk, uv1, uv2, valid_mask, K, inlier_threshold):
-    """Full-N re-scoring of the k leader hypotheses; exact winner pick.
-    Returns (F, R, t, votes (4,), inliers (N,), num ())."""
+def _pose_stage2_rank(Fk, Rk, tk, uv1, uv2, valid_mask, K, inlier_threshold):
+    """The per-match half of stage 2 over (a slice of) the match axis:
+    per-leader cheirality votes (k, 4) and truncated-residual scores (k,),
+    sums over matches that a match-sharded caller ``psum``s."""
     resid_k = epipolar.sampson_error(Fk, uv1, uv2)
     resid_k = torch.where(valid_mask[None, :], resid_k, torch.inf)
     samp_k = resid_k <= inlier_threshold
     z1k, z2k = epipolar.triangulate_midpoint_depths(K, Rk, tk, uv1, uv2)
     votes_k = (samp_k[:, None, :] & (z1k > 0) & (z2k > 0)).sum(dim=2)
-    score_k = _truncated_sum(resid_k, inlier_threshold)
+    return votes_k, _truncated_sum(resid_k, inlier_threshold)
 
+
+def _pose_stage2_select(Fk, Rk, tk, votes_k, score_k, uv1, uv2, valid_mask,
+                        K, inlier_threshold):
+    """Winner selection from full-N votes and scores, and the winner's
+    exact inlier mask. Returns (F, R, t, votes (4,), inliers (N,), num ())."""
     counts_k = votes_k.amax(dim=1)
     cand_k = votes_k.argmax(dim=1)
     combined_k = counts_k.float() - score_k / (score_k.max() + 1.0)
@@ -234,6 +253,14 @@ def _pose_stage2(Fk, Rk, tk, uv1, uv2, valid_mask, K, inlier_threshold):
     z1, z2 = epipolar.triangulate_midpoint_depths(K, R, t, uv1, uv2)
     inl = samp & (z1 > 0) & (z2 > 0)
     return F, R, t, pick(votes_k, bk), inl, inl.sum().to(torch.int32)
+
+
+def _pose_stage2(Fk, Rk, tk, uv1, uv2, valid_mask, K, inlier_threshold):
+    """Full-N re-scoring of the k leader hypotheses; exact winner pick."""
+    votes_k, score_k = _pose_stage2_rank(Fk, Rk, tk, uv1, uv2, valid_mask, K,
+                                         inlier_threshold)
+    return _pose_stage2_select(Fk, Rk, tk, votes_k, score_k, uv1, uv2,
+                               valid_mask, K, inlier_threshold)
 
 
 def _pose_refine(R, t, inl, uv1, uv2, valid_mask, K, inlier_threshold,

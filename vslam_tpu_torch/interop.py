@@ -57,6 +57,15 @@ def from_jax(tree, cls, device="cpu"):
     return cls(**kw)
 
 
+def map_shard(tree, rank: int, num_shards: int, device="cpu"):
+    """Block ``rank`` of ``num_shards`` of a reference ``MapState`` (numpy
+    leaves or a dict of them): the port's ``MapState`` a rank of a sharded
+    map holds (``parallel.sharded_map`` layout)."""
+    from .core.types import MapState
+    from .parallel.sharded_map import local_block
+    return local_block(from_jax(tree, MapState, device), rank, num_shards)
+
+
 def to_numpy(state):
     """Port dataclass -> nested dict of numpy arrays (descriptors as
     uint32, the reference dtype). Generators are left out."""

@@ -1,16 +1,22 @@
 """Bundle adjustment: Levenberg-Marquardt with a Schur complement.
 
-Port of ``vslam_tpu/optimizer/ba.py`` (single device; the sharded solver's
-``axis_name`` is left out). A problem is (C cams, P points, K obs-slots per
-point) in point-major layout, so eliminating a landmark needs only its own
-row. Per-observation 2x6 / 2x3 Jacobians are closed form, 3x3 landmark
-Hessians are inverted in closed form, and the reduced (6C, 6C) camera
-system is factored densely. Conventions: cameras are T_cw (world->camera),
-updates are left-multiplicative se(3): T_cw <- exp(xi) T_cw.
+Port of ``vslam_tpu/optimizer/ba.py``. A problem is (C cams, P points, K
+obs-slots per point) in point-major layout, so eliminating a landmark needs
+only its own row. Per-observation 2x6 / 2x3 Jacobians are closed form, 3x3
+landmark Hessians are inverted in closed form, and the reduced (6C, 6C)
+camera system is factored densely. Conventions: cameras are T_cw
+(world->camera), updates are left-multiplicative se(3): T_cw <- exp(xi)
+T_cw.
 
 The reference's ``lax.scan`` over LM iterations is a Python loop here;
 accept/reject and damping stay on tensors (``torch.where``), so a solve
 never reads a value back to the host.
+
+With ``mesh``/``axis`` the point axis is this rank's block of a problem
+sharded over ``axis`` (``parallel.sharded_ba``): the cost and the reduced
+camera system (S, b_c) are ``psum``med where the reference ``psum``s them,
+every rank factors the same reduced system, and every accept/reject reads
+the summed cost, so all ranks take the same branch.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import torch
 from ..config import BAConfig
 from ..core import lie
 from ..core.types import Replace
+from ..parallel.mesh import psum
 
 
 @dataclasses.dataclass
@@ -123,12 +130,14 @@ def _cam_idx(problem: BAProblem):
     return torch.clamp(problem.obs_cam, 0, problem.num_cams - 1).long()
 
 
-def compute_cost(problem: BAProblem, K_intr, huber_delta: float):
+def compute_cost(problem: BAProblem, K_intr, huber_delta: float, mesh=None,
+                 axis: str | None = None):
     T = problem.T_cw[_cam_idx(problem)]
     r, Xc = _project_residual(T, problem.points[:, None, :], problem.obs_uv,
                               K_intr)
     mask = problem.obs_mask & problem.point_mask[:, None] & (Xc[..., 2] > 1e-3)
-    return _huber_cost(r, mask, huber_delta)
+    c = _huber_cost(r, mask, huber_delta)
+    return c if mesh is None else psum(mesh, axis, c)
 
 
 def _gn_quantities(T_cw, points, problem: BAProblem, K_intr, huber_delta):
@@ -148,7 +157,8 @@ def _diag_blocks(S):
 
 
 def _schur_reduce(r, w, J_c, J_p, problem: BAProblem, lam, block: int = 512,
-                  assembly: str = "onehot"):
+                  assembly: str = "onehot", mesh=None,
+                  axis: str | None = None):
     """Build the reduced camera system S (6C, 6C), b (6C,), plus the
     landmark back-substitution data (Hpp_inv (P,3,3), b_p (P,3), W_blk).
 
@@ -157,6 +167,10 @@ def _schur_reduce(r, w, J_c, J_p, problem: BAProblem, lam, block: int = 512,
     "scatter" scatter-adds the 6x6 blocks over fixed-size point blocks
     (memory independent of C). See the reference docstring for the race
     between them on the TPU.
+
+    With ``mesh``, the point axis is sharded over ``axis``: S and b_c are
+    ``psum``med before damping, so every rank holds the full reduced
+    system; the landmark data stays local.
     """
     P, K = problem.obs_cam.shape
     C = problem.num_cams
@@ -215,6 +229,9 @@ def _schur_reduce(r, w, J_c, J_p, problem: BAProblem, lam, block: int = 512,
         _diag_blocks(S).add_(H_cc)
     else:
         raise ValueError(f"unknown Schur assembly {assembly!r}")
+    if mesh is not None:
+        S = psum(mesh, axis, S)
+        b_c = psum(mesh, axis, b_c)
 
     # LM damping on camera blocks (scaled by each block's trace)
     diag = _diag_blocks(S)
@@ -259,9 +276,11 @@ def _solve_dense(S, b):
     return torch.where((info == 0) & torch.isfinite(dx), dx, 0.0)
 
 
-def _solve_impl(problem: BAProblem, K_intr, cfg: BAConfig):
+def _solve_impl(problem: BAProblem, K_intr, cfg: BAConfig, mesh=None,
+                axis: str | None = None):
     """The LM loop: ``cfg.iterations`` steps with accept/reject and damping
-    adaptation, all on tensors."""
+    adaptation, all on tensors. With ``mesh``, ``problem`` holds this
+    rank's block of points (see the module docstring)."""
     dev = problem.T_cw.device
     K_intr = torch.as_tensor(K_intr, dtype=torch.float32).to(dev)
 
@@ -272,7 +291,7 @@ def _solve_impl(problem: BAProblem, K_intr, cfg: BAConfig):
 
     def cost_of(T_cw, points):
         return compute_cost(problem.replace(T_cw=T_cw, points=points),
-                            K_intr, cfg.huber_delta)
+                            K_intr, cfg.huber_delta, mesh, axis)
 
     free = (problem.cam_mask & ~problem.cam_fixed)[:, None]
     T_cw, points = problem.T_cw, problem.points
@@ -283,7 +302,8 @@ def _solve_impl(problem: BAProblem, K_intr, cfg: BAConfig):
         r, w, J_c, J_p, _ = _gn_quantities(T_cw, points, problem, K_intr,
                                            cfg.huber_delta)
         S, b, Hpp_inv, b_p, W_blk = _schur_reduce(
-            r, w, J_c, J_p, problem, lam, assembly=assembly)
+            r, w, J_c, J_p, problem, lam, assembly=assembly, mesh=mesh,
+            axis=axis)
         dx_cam = _solve_dense(S, b)
         dX = _backsub(dx_cam, Hpp_inv, b_p, W_blk, problem)
         dX = torch.where(torch.isfinite(dX), dX, 0.0)

@@ -1,6 +1,6 @@
 """Full SLAM system: tracking + keyframing + map maintenance + window BA.
 
-Port of ``vslam_tpu/pipeline/slam.py`` without a mesh. The host loop moves
+Port of ``vslam_tpu/pipeline/slam.py``. The host loop moves
 images in and scalars out: each ordinary frame (neither a keyframe nor a
 BA frame) costs one device-to-host transfer, the packed pose and counters
 of the step; a BA attempt adds one more for its gate statistics before
@@ -10,6 +10,16 @@ frame body is a captured graph. The window-BA guards are host-side numpy on the
 solved window, as in the reference, and what they write back re-enters as
 float32 on the system's device. The reference's comments give the
 measurements behind every guard and constant; this file keeps the what.
+
+With a mesh (``parallel.mesh.make_mesh``) every rank runs this same loop
+and holds its block of the map (BASELINE config 4): each step goes through
+``track_step(mesh=)``, and every host decision reads replicated values, so
+all ranks take the same branches. Maintenance, the window problems, their
+write-back, ``snapshot`` and checkpoints need the whole map: they gather it
+(``sharded_map.gather_map_state``), run the single-device function on
+every rank (stable sorts make it deterministic) and shard the result
+again. That moves the whole map once per event, about 30 MB at the default
+131072 slots x 4 descriptors (``pt`` 12.6 MB, ``desc`` 16.8 MB).
 """
 from __future__ import annotations
 
@@ -24,6 +34,8 @@ from ..config import VSLAMConfig
 from ..core.types import PT_COLOR
 from ..mapping import point_map
 from ..optimizer import ba
+from ..parallel import sharded_map
+from ..parallel.mesh import axis_size
 from ..utils.metrics import MetricsLogger
 from . import keyframes, scan_driver, tracker
 
@@ -67,11 +79,24 @@ def _window_gate_stats(problem: ba.BAProblem, sel_prov):
 
 
 class SLAMSystem:
-    """Monocular SLAM over a frame stream, on one device."""
+    """Monocular SLAM over a frame stream, on one device or, with ``mesh``,
+    with the map sharded over the mesh's ``cfg.mesh.axis_map`` axis."""
 
     def __init__(self, cfg: VSLAMConfig, device="cuda",
                  metrics_path: Optional[str] = None, seed: int = 0,
-                 enable_ba: bool = True):
+                 enable_ba: bool = True, mesh=None):
+        self.mesh = mesh
+        self._map_axis = cfg.mesh.axis_map
+        if mesh is not None:
+            if self._map_axis not in mesh.mesh_dim_names:
+                raise ValueError(f"mesh {mesh} has no axis "
+                                 f"{self._map_axis!r}")
+            n = axis_size(mesh, self._map_axis)
+            if cfg.map.capacity % n or \
+                    (cfg.map.capacity // n) % cfg.map.block_size:
+                raise ValueError("per-shard capacity must be a multiple of "
+                                 f"the block size: {cfg.map.capacity} over "
+                                 f"{n}, block {cfg.map.block_size}")
         self.cfg = cfg
         self.device = torch.device(device)
         self.metrics = MetricsLogger(metrics_path)
@@ -108,8 +133,9 @@ class SLAMSystem:
         tensor; a tensor already on the system's device is not copied)."""
         t0 = time.perf_counter()
         if self.state is None:
-            self.state = tracker.bootstrap(img, self.cfg, self.device,
-                                           seed=self._seed)
+            state = tracker.bootstrap(img, self.cfg, self.device,
+                                      seed=self._seed)
+            self.state = state.replace(map=self._local(state.map))
             self.trajectory.append(np.eye(4, dtype=np.float32))
             info = {"kind": "frame", "frame": 0, "bootstrap": True,
                     "wall_s": time.perf_counter() - t0}
@@ -117,7 +143,9 @@ class SLAMSystem:
             self.frame_idx = 1
             return info
 
-        self.state, out = tracker.track_step(self.state, img, self.cfg)
+        self.state, out = tracker.track_step(self.state, img, self.cfg,
+                                             mesh=self.mesh,
+                                             map_axis=self._map_axis)
         self.last_output = out
         # one bulk device->host transfer for all scalars + the pose (f64
         # holds every f32 and every count exactly)
@@ -159,9 +187,10 @@ class SLAMSystem:
         ran_maintenance = False
         if counts["map_size"] >= self._maint_high_water:
             m2, pid2, obs2 = scan_driver._maintenance(
-                self.state.map, self.state.prev_map_id,
+                self.whole_map(), self.state.prev_map_id,
                 self.kf_store.obs_pid, self._maint_min_free)
-            self.state = self.state.replace(map=m2, prev_map_id=pid2)
+            self.state = self.state.replace(map=self._local(m2),
+                                            prev_map_id=pid2)
             self.kf_store = self.kf_store.replace(
                 obs_pid=obs2, obs_mask=self.kf_store.obs_mask & (obs2 >= 0))
             self.maintenance_runs += 1
@@ -194,8 +223,11 @@ class SLAMSystem:
         Window BA fires at chunk boundaries; with the chunk length aligned
         to keyframe_every * local_ba_every its events land on the frames
         the per-frame driver picks. Structure refinement
-        (``structure_every``) does not run here, as in the reference.
+        (``structure_every``) does not run here, as in the reference, nor
+        does the sharded map (``mesh``).
         """
+        if self.mesh is not None:
+            raise ValueError("process_chunk: single-device map only")
         t0 = time.perf_counter()
         if not isinstance(inputs, torch.Tensor):
             inputs = np.asarray(inputs, np.float32)
@@ -255,6 +287,21 @@ class SLAMSystem:
             self._run_window_ba()
         return {"frames": T, "ran_ba": ran_ba, "track_s": track_s,
                 "capture_s": capture_s, "wall_s": time.perf_counter() - t0}
+
+    # ------------------------------------------------------------------
+    def whole_map(self):
+        """The whole map: ``state.map`` itself, or with a mesh every rank's
+        block gathered (one ``all_gather`` per field)."""
+        m = self.state.map
+        if self.mesh is None:
+            return m
+        return sharded_map.gather_map_state(self.mesh, self._map_axis, m)
+
+    def _local(self, m):
+        """This rank's part of a whole map: ``m`` itself without a mesh."""
+        if self.mesh is None:
+            return m
+        return sharded_map.shard_map_state(self.mesh, self._map_axis, m)
 
     # ------------------------------------------------------------------
     @staticmethod
@@ -351,15 +398,16 @@ class SLAMSystem:
         the ray span are written back and promoted. Poses are untouched."""
         cfg = self.cfg
         ba_cfg = dataclasses.replace(cfg.ba, iterations=6)
+        whole = self.whole_map()
         wp = keyframes.build_window_problem(
-            self.kf_store, self.state.map, cfg.replace(ba=ba_cfg),
+            self.kf_store, whole, cfg.replace(ba=ba_cfg),
             free_tail=0, prov_min_obs=2)
         solved, stats = ba.solve_robust(wp.problem, self._K, ba_cfg,
                                         reject_px=3.0, rounds=2)
         new_map, n_promoted = keyframes.apply_structure_result(
-            self.state.map, wp, solved,
+            whole, wp, solved,
             tracker._rad(0.5 * cfg.triangulation.promote_parallax_deg))
-        self.state = self.state.replace(map=new_map)
+        self.state = self.state.replace(map=self._local(new_map))
         init, fin, n = torch.stack([
             stats.initial_cost.double(), stats.final_cost.double(),
             n_promoted.double()]).tolist()
@@ -371,8 +419,9 @@ class SLAMSystem:
     def _run_window_ba(self):
         # prov_min_obs=99: provisional landmarks stay out of the
         # pose-moving solve (estimating them is _refine_structure's job)
+        whole = self.whole_map()
         wp = keyframes.build_window_problem(
-            self.kf_store, self.state.map, self.cfg,
+            self.kf_store, whole, self.cfg,
             free_tail=self.cfg.ba.free_cams, prov_min_obs=99)
         # all pre-solve gate statistics in one transfer
         n_obs, n_free, deep_obs, solid_obs = torch.stack(
@@ -396,7 +445,7 @@ class SLAMSystem:
         s_corr = 1.0
         if ba_accepted:
             self.kf_store, new_map, T_corr = keyframes.apply_window_result(
-                self.kf_store, self.state.map, wp, solved)
+                self.kf_store, whole, wp, solved)
             # re-gauge the motion model from the newest keyframe gap, only
             # where the window's scale direction is observed
             idx = np.where(_np(wp.win_valid))[0]
@@ -412,7 +461,8 @@ class SLAMSystem:
             vel = self.state.vel.clone()
             vel[:3, 3] *= s_corr
             self.state = self.state.replace(
-                map=new_map, pose=T_corr @ self.state.pose, vel=vel,
+                map=self._local(new_map), pose=T_corr @ self.state.pose,
+                vel=vel,
                 scale=(self.state.scale.double() * s_corr).float())
         self.last_ba_stats = stats
         init, fin, n_acc, d_pts, d_obs, evicted = torch.stack([
@@ -429,13 +479,18 @@ class SLAMSystem:
             evicted_keyframes=int(evicted))
 
     # ------------------------------------------------------------------
-    def run_global_ba(self, iterations: Optional[int] = None,
+    def run_global_ba(self, mesh=None, axis_name: str = "map",
+                      iterations: Optional[int] = None,
                       reject_px: float = 2.0, huber_delta: float = 1.5):
         """Global BA over every retained keyframe, tighter than window BA
         (reject 2 px, Huber 1.5). The problem is sized on the host from the
         keyframe store's observation graph (rounded up to buckets), so a
         full run optimizes with zero truncation; the Schur assembly is
-        one-hot up to ``onehot_max_cams`` cameras and scatter beyond."""
+        one-hot up to ``onehot_max_cams`` cameras and scatter beyond.
+
+        With ``mesh``, as in the reference, the rejection rounds run on
+        one device (every rank, replicated), then the landmark-sharded
+        solve over ``axis_name`` (``parallel.sharded_ba``)."""
         cfg = self.cfg
         pid = _np(self.kf_store.obs_pid)
         msk = _np(self.kf_store.obs_mask) \
@@ -447,19 +502,27 @@ class SLAMSystem:
         else:
             n_unique, max_obs = 1, 2
         bucket = lambda n, q: int(-(-max(n, 1) // q) * q)
-        P = min(bucket(n_unique, 1024), int(self.state.map.capacity))
+        P = min(bucket(n_unique, 1024), int(self.cfg.map.capacity))
         Kslots = bucket(max_obs, 8)
         ba_cfg = dataclasses.replace(
             cfg.ba, iterations=iterations or cfg.ba.iterations,
             huber_delta=huber_delta, max_obs_per_point=Kslots)
+        whole = self.whole_map()
         wp = keyframes.build_window_problem(
-            self.kf_store, self.state.map, cfg.replace(ba=ba_cfg),
+            self.kf_store, whole, cfg.replace(ba=ba_cfg),
             window=self.kf_store.ring_size, max_points=P)
-        solved, stats = ba.solve_robust(wp.problem, self._K, ba_cfg,
-                                        reject_px=reject_px, rounds=3)
+        if mesh is not None:
+            from ..parallel import sharded_ba
+            p, _ = ba.solve_robust(wp.problem, self._K, ba_cfg,
+                                   reject_px=reject_px, rounds=2)
+            solved, stats = sharded_ba.solve_sharded(mesh, axis_name, p,
+                                                     self._K, ba_cfg)
+        else:
+            solved, stats = ba.solve_robust(wp.problem, self._K, ba_cfg,
+                                            reject_px=reject_px, rounds=3)
         self.kf_store, new_map, T_corr = keyframes.apply_window_result(
-            self.kf_store, self.state.map, wp, solved)
-        self.state = self.state.replace(map=new_map,
+            self.kf_store, whole, wp, solved)
+        self.state = self.state.replace(map=self._local(new_map),
                                         pose=T_corr @ self.state.pose)
         self.last_ba_stats = stats
         d_pts, d_obs, evicted = torch.stack([
@@ -491,7 +554,7 @@ class SLAMSystem:
     def snapshot(self) -> Dict[str, np.ndarray]:
         """Immutable map/trajectory snapshot (host numpy) for
         visualization/export."""
-        m = self.state.map
+        m = self.whole_map()
         size = int(m.size)
         alive = _np(m.alive)[:size]
         return {

@@ -1,7 +1,8 @@
 """The per-frame tracking step: bootstrap + track_step.
 
-Port of ``vslam_tpu/pipeline/tracker.py`` (no mesh; both front-end
-variants, ``track_carry`` and ``oriented``): extract (with the mapped-track
+Port of ``vslam_tpu/pipeline/tracker.py`` (both front-end variants,
+``track_carry`` and ``oriented``; the sharded map through ``MapOps``):
+extract (with the mapped-track
 carry when ``track_carry``) -> match (kernel K1) -> RANSAC pose -> scale ->
 pose chain -> map-id propagation -> search-by-projection association
 (kernel K2) -> PnP -> delayed triangulation -> map insert -> landmark
@@ -216,8 +217,17 @@ def default_map_ops(cfg: VSLAMConfig, W: int, H: int) -> MapOps:
     )
 
 
-def track_step(state: TrackerState, img, cfg: VSLAMConfig):
-    """Track one new frame. Returns (new_state, TrackOutput)."""
+def track_step(state: TrackerState, img, cfg: VSLAMConfig, mesh=None,
+               map_axis: str = "map"):
+    """Track one new frame. Returns (new_state, TrackOutput).
+
+    With ``mesh`` (a ``parallel.mesh.make_mesh`` mesh carrying
+    ``map_axis``), ``state.map`` is this rank's block of the map and the
+    step runs with shard-local map operations and explicit collectives
+    (``parallel.sharded_tracker``, BASELINE config 4)."""
+    if mesh is not None:
+        from ..parallel import sharded_tracker
+        return sharded_tracker.run_sharded(state, img, cfg, mesh, map_axis)
     H, W = cfg.camera.height, cfg.camera.width
     return _step_impl(state, img, cfg, default_map_ops(cfg, W, H))
 

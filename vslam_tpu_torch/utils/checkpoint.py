@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import interop
+from ..parallel.mesh import psum
 
 _KEY_TORCH = "state/key_torch"
 
@@ -68,9 +69,23 @@ def _check_shapes(got, want, path):
 
 
 def save_state(path: str, system) -> str:
-    """Serialize a ``pipeline.slam.SLAMSystem`` to <path>.npz (+ .json)."""
+    """Serialize a ``pipeline.slam.SLAMSystem`` to <path>.npz (+ .json).
+    A sharded map is gathered whole, so every rank calls this; rank 0
+    writes, and no rank returns before the files are complete (a
+    ``load_state`` right after finds them)."""
+    whole = system.state.replace(map=system.whole_map())
+    if system.mesh is None or system.mesh.get_rank() == 0:
+        _write(path, system, whole)
+    if system.mesh is not None:
+        # rank 0 joins after writing; reading the sum waits for it
+        int(psum(system.mesh, system.cfg.mesh.axis_map,
+                 torch.zeros((), device=system.device)))
+    return path
+
+
+def _write(path: str, system, whole) -> None:
     npz_path, meta_path = _paths(path)
-    payload = _flatten(interop.to_numpy(system.state), "state", {})
+    payload = _flatten(interop.to_numpy(whole), "state", {})
     payload.update(_flatten(interop.to_numpy(system.kf_store), "kf", {}))
     seed = system.state.key.initial_seed()
     payload["state/key"] = np.array([seed >> 32, seed & 0xFFFFFFFF],
@@ -82,7 +97,6 @@ def save_state(path: str, system) -> str:
             "config": json.loads(system.cfg.to_json())}
     with open(meta_path, "w") as f:
         json.dump(meta, f)
-    return path
 
 
 def load_state(path: str, system) -> None:
@@ -103,6 +117,7 @@ def load_state(path: str, system) -> None:
     _check_shapes(store, interop.to_numpy(system.kf_store), "kf")
     system.state = interop.from_jax(state, tracker.TrackerState,
                                     system.device)
+    system.state = system.state.replace(map=system._local(system.state.map))
     # the generator's exact state, where it was saved from a generator of
     # the same kind (a CUDA generator's state is its seed and offset, a
     # CPU generator's its Mersenne Twister; across kinds the seed carries)
