@@ -152,3 +152,20 @@ def test_run_with_both_frontend_variants(tmp_path):
     summary = json.loads((out / "summary.json").read_text())
     assert summary["frames"] == 8 and summary["map_points"] > 0
     assert summary["ate_rmse"] < 0.5
+
+
+def test_run_without_matplotlib(tmp_path, monkeypatch, capsys):
+    """Where matplotlib is not installed the run writes every other output
+    and says that it skipped map.png (``viz.render.render_png`` imports
+    matplotlib; the rest needs only numpy)."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    run = ["run", "--synthetic", "--small", "--frames", "4",
+           "--synthetic-points", "1500", "--device", "cpu"]
+    assert cli.main(run + ["--out", str(tmp_path)]) == 0
+    assert "map.png not written" in capsys.readouterr().err
+    assert not (tmp_path / "map.png").exists()
+    for name in OUTPUTS:
+        if name != "map.png":
+            assert (tmp_path / name).stat().st_size > 0, name

@@ -324,6 +324,26 @@ def test_ba_solve_on_cuda_matches_cpu(cuda, assembly):
     assert float(st_c.final_cost) < 0.5 * float(st_c.initial_cost)
 
 
+def test_bench_ba_race_on_cuda_matches_cpu(cuda):
+    """``tools.bench_ba``'s problem raced on the card and on the CPU: each
+    assembly's costs within chip_smoke phase 9's bounds (1e-4 initial, 1e-3
+    final, relative) with equal accept flags (but for a rounding tie of a
+    converged solve: the card's scatter adds round in no fixed order)."""
+    from vslam_tpu_torch.tools import bench_ba
+
+    problem, K = bench_ba.make_problem(20, 1024, 16)
+    got = bench_ba.race_assemblies(_to(problem, cuda), K, base_iters=4)
+    want = bench_ba.race_assemblies(problem, K, base_iters=4)
+    for a in ("onehot", "scatter"):
+        g, w = got[a], want[a]
+        assert abs(g["initial_cost"] - w["initial_cost"]) \
+            <= 1e-4 * w["initial_cost"], a
+        assert abs(g["final_cost"] - w["final_cost"]) \
+            <= 1e-3 * w["final_cost"], a
+        assert bench_ba.path_disagreement(g, w) is None, a
+        assert w["final_cost"] < 0.1 * w["initial_cost"]
+
+
 def test_wrappers_check_inputs_on_cuda(cuda):
     d = torch.zeros((4, 8), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
@@ -377,6 +397,8 @@ CHUNK_CASES = {
     "render-fn": (12, False, (6, 6)),
     # both front-end variants (oriented, track_carry) in the graph
     "variants": (17, False, (7, 5, 5)),
+    # the reference's RANSAC stream: a fixed Threefry key in the state
+    "threefry": (25, True, (5, 4, 4, 4, 4, 4)),
 }
 
 
@@ -398,10 +420,11 @@ def test_chunk_matches_process_on_cuda(cuda, case):
         frames = torch.stack([render(p) for p in inputs])
     else:
         inputs = frames = torch.from_numpy(_chunk_scene(n)).to(cuda)
-    a = slam.SLAMSystem(cfg, cuda, enable_ba=ba_on)
+    rng = "threefry" if case == "threefry" else "torch"
+    a = slam.SLAMSystem(cfg, cuda, enable_ba=ba_on, rng=rng)
     for f in frames:
         a.process(f)
-    b = slam.SLAMSystem(cfg, cuda, enable_ba=ba_on)
+    b = slam.SLAMSystem(cfg, cuda, enable_ba=ba_on, rng=rng)
     s0 = 0
     for k in sizes:
         b.process_chunk(inputs[s0:s0 + k], render_fn=render)
@@ -432,6 +455,62 @@ def test_chunk_matches_process_on_cuda(cuda, case):
     g = b.chunk_graphs[render]
     assert g.captured_launches == {"hamming": 1, "associate": 1}
     assert g.replays == n - 1
+
+
+def test_threefry_on_cuda_matches_cpu(cuda):
+    """The reference's stream (``utils.threefry``, int64 words masked to 32
+    bits) draws the same samples on the card as on the CPU."""
+    from vslam_tpu_torch.geometry import ransac
+    from vslam_tpu_torch.utils import threefry
+
+    w = torch.from_numpy(
+        (np.random.RandomState(0).rand(3072) > 0.6).astype(np.float32))
+    for seed in (0, 7, 2 ** 32 - 1):
+        for frame in (1, 50, 2 ** 31 + 3):
+            kc = threefry.fold_in(threefry.key(seed), frame)
+            kg = threefry.fold_in(threefry.key(seed, cuda), frame)
+            assert torch.equal(kg.cpu(), kc)
+            for m in (7, 3072, 2 ** 31 - 1):
+                assert torch.equal(threefry.randint(kg, (1024, 8), m).cpu(),
+                                   threefry.randint(kc, (1024, 8), m))
+            assert torch.equal(
+                ransac.sample_minimal_sets(kg, w.to(cuda), 1024, 8).cpu(),
+                ransac.sample_minimal_sets(kc, w, 1024, 8))
+
+
+def test_revisit_on_cuda_follows_cpu(cuda):
+    """``tools.endurance``'s revisit scene (scene seed 2) with window BA on
+    the reference's RANSAC stream of seed 7, in chunks of 10, on the card
+    and on the CPU: every frame's decisions and every BA event's outcome
+    equal, poses within 5e-3 over the first 40 frames (the CPU run is held
+    to the reference's by tests/test_torch_revisit.py)."""
+    from vslam_tpu_torch.datasets import synthetic
+    from vslam_tpu_torch.pipeline import slam
+    from vslam_tpu_torch.tools import endurance
+
+    cfg = endurance.revisit_config(endurance.config())
+    gt = synthetic.make_trajectory(100, step=0.35, yaw_rate=0.002, seed=2)
+    scene = synthetic.make_scene(num_points=900, seed=2, extent=(16, 6, 60),
+                                 z_min=6.0)
+    frames = [synthetic.render_frame(cfg.camera.K(), gt[i], scene,
+                                     cfg.camera.width, cfg.camera.height)
+              for i in range(100)]
+    runs = []
+    for dev in (cuda, "cpu"):
+        s = slam.SLAMSystem(cfg, dev, seed=7, rng="threefry")
+        endurance._drive(s, frames, 10)
+        runs.append(s)
+    ra, rb = _frame_rows(runs[0]), _frame_rows(runs[1])
+    assert len(ra) == len(rb) == 99
+    for x, y in zip(ra, rb):
+        for k in ("keyframe", "success", "ran_maintenance"):
+            assert x[k] == y[k], (x["frame"], k, x[k], y[k])
+    ea, eb = ([(r["frame"], r.get("skipped"), r["ba_result_accepted"])
+               for r in s.metrics.records if r.get("kind") == "ba"]
+              for s in runs)
+    assert ea == eb and sum(e[2] for e in ea) >= 2
+    err = np.abs(runs[0].poses() - runs[1].poses()).max(axis=(1, 2))
+    assert err[:40].max() <= 5e-3, err
 
 
 def test_render_frame_device_on_cuda_matches_cpu(cuda):

@@ -161,7 +161,8 @@ def _run(args):
     sys_ = SLAMSystem(cfg, args.device,
                       metrics_path=os.path.join(args.out, "metrics.jsonl")
                       if rank0 else None,
-                      enable_ba=not args.no_ba, seed=args.seed, mesh=mesh)
+                      enable_ba=not args.no_ba, seed=args.seed, mesh=mesh,
+                      rng=args.rng)
     if args.save_frames and rank0:
         os.makedirs(os.path.join(args.out, "frames"), exist_ok=True)
     stream = None
@@ -206,7 +207,10 @@ def _run(args):
     poses = sys_.poses()
     trajectory.save_tum(os.path.join(args.out, "trajectory_tum.txt"), poses)
     trajectory.save_kitti(os.path.join(args.out, "trajectory_kitti.txt"), poses)
-    render.render_png(snap, os.path.join(args.out, "map.png"))
+    try:
+        render.render_png(snap, os.path.join(args.out, "map.png"))
+    except ImportError as e:            # matplotlib is optional
+        print(f"map.png not written: {e}", file=sys.stderr)
     render.save_html(snap, os.path.join(args.out, "map.html"))
     render.save_ply(snap, os.path.join(args.out, "map.ply"))
 
@@ -267,6 +271,10 @@ def main(argv=None):
     r.add_argument("--global-ba", action="store_true",
                    help="run global BA over all keyframes at end of sequence")
     r.add_argument("--seed", type=int, default=0)
+    r.add_argument("--rng", choices=["torch", "threefry"], default="torch",
+                   help="RANSAC stream: a torch.Generator, or the "
+                        "reference's jax.random Threefry stream (the same "
+                        "samples as the JAX package with the same --seed)")
     r.add_argument("--verbose", "-v", action="store_true")
     r.add_argument("--save-frames", action="store_true",
                    help="write annotated PNG per frame (keypoints + match "

@@ -131,3 +131,9 @@ def orthonormalize_T(T, iters: int = 2):
     out[..., :3, :3] = R
     return out
 
+
+def transform_points(T, X):
+    """Apply (…,4,4) to points (…,N,3) -> (…,N,3)."""
+    R = T[..., :3, :3]
+    t = T[..., :3, 3]
+    return torch.einsum("...ij,...nj->...ni", R, X) + t[..., None, :]

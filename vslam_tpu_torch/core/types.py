@@ -39,6 +39,23 @@ class FrameFeatures(Replace):
     mask: torch.Tensor        # (N,) bool — valid keypoint
     angle: torch.Tensor       # (N,) f32 orientation (radians)
 
+    @property
+    def capacity(self) -> int:
+        return self.uv.shape[-2]
+
+
+@dataclasses.dataclass
+class TwoViewResult(Replace):
+    """Output of the two-view tracker (match → RANSAC → E → R,t)."""
+    matches: torch.Tensor     # (M, 2) i32 indices (in frame1, in frame2)
+    match_mask: torch.Tensor  # (M,) bool — survived ratio test + RANSAC
+    F: torch.Tensor           # (3, 3) fundamental matrix
+    E: torch.Tensor           # (3, 3) essential matrix
+    R: torch.Tensor           # (3, 3) relative rotation (cam1 -> cam2)
+    t: torch.Tensor           # (3,) unit-norm relative translation
+    num_inliers: torch.Tensor  # () i32
+    success: torch.Tensor     # () bool
+
 
 @dataclasses.dataclass
 class MapState(Replace):
@@ -59,9 +76,30 @@ class MapState(Replace):
     def obs_slots(self) -> int:
         return self.desc.shape[-2] // self.pt.shape[-2]
 
+    # packed-column views (writers scatter packed rows into pt)
     @property
     def xyz(self) -> torch.Tensor:
         return self.pt[..., PT_XYZ]
+
+    @property
+    def color(self) -> torch.Tensor:
+        return self.pt[..., PT_COLOR]
+
+    @property
+    def conf(self) -> torch.Tensor:
+        return self.pt[..., PT_CONF]
+
+    @property
+    def first_uv(self) -> torch.Tensor:
+        return self.pt[..., PT_FIRST_UV]
+
+    @property
+    def first_C(self) -> torch.Tensor:
+        return self.pt[..., PT_FIRST_C]
+
+    @property
+    def first_P(self) -> torch.Tensor:
+        return self.pt[..., PT_FIRST_P].reshape(self.pt.shape[:-1] + (3, 4))
 
 
 def pack_pt_rows(xyz, conf, color, first_uv, first_C, first_P):

@@ -6,10 +6,10 @@ polish), and ``ransac_pose`` with its two-stage verification and LO +
 multistart refine. The hypothesis axis is a batch axis, as in the
 reference; where the reference ``vmap``s a fit or residual function over
 it, the port's functions take the batched form (see ``ransac``). Sampling
-draws from an explicit ``torch.Generator`` with no host sync; the
-reference's ``jax.random`` stream cannot be reproduced, so parity tests
-hand both sides the same (H, S) samples through the ``*_from_samples``
-entries.
+draws, with no host sync, from an explicit ``torch.Generator`` or from a
+Threefry key (``utils.threefry``), which gives the reference's own
+``jax.random`` samples; parity tests can also hand both sides the same
+(H, S) samples through the ``*_from_samples`` entries.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from . import epipolar
 from ..core import lie
 from ..core.types import pick
 from ..ops import jacobi
+from ..utils import threefry
 
 
 class RansacResult(NamedTuple):
@@ -46,14 +47,18 @@ def sample_minimal_sets(gen, weights, num_hypotheses: int, sample_size: int):
     """Draw (H, S) index sets over the entries with positive weight.
 
     Same scheme as the reference (valid indices compacted by a stable
-    argsort, then S uniform positions per hypothesis), written sync-free:
-    positions are floor(U * n_valid) with U ~ uniform[0, 1) from ``gen``.
+    argsort, then S uniform positions per hypothesis), written sync-free.
+    ``gen`` is a ``torch.Generator`` (positions floor(U * n_valid) with
+    U ~ uniform[0, 1)) or a Threefry key tensor (the positions the
+    reference's ``jax.random.randint`` draws from that key).
     """
     valid = weights > 0
     n_valid = torch.clamp(valid.sum(), min=1)
     order = torch.argsort((~valid).to(torch.int32), stable=True)
-    u = torch.rand((num_hypotheses, sample_size), generator=gen,
-                   device=weights.device)
+    shape = (num_hypotheses, sample_size)
+    if isinstance(gen, torch.Tensor):
+        return order[threefry.randint(gen, shape, n_valid)]
+    u = torch.rand(shape, generator=gen, device=weights.device)
     pos = torch.clamp((u * n_valid).long(), max=n_valid - 1)
     return order[pos]
 

@@ -206,21 +206,30 @@ class ChunkGraph:
     def _capture(self, state, store, x):
         dev = x.device
         t0 = time.perf_counter()
-        scratch = torch.Generator(device=dev)
-        scratch.set_state(state.key.get_state())
+        # a generator advances in place, so the warm-up draws from a copy
+        # and the graph from its own registered generator; a Threefry key
+        # is a fixed tensor of the state
+        stream = isinstance(state.key, torch.Generator)
+        warm = state
+        if stream:
+            scratch = torch.Generator(device=dev)
+            scratch.set_state(state.key.get_state())
+            warm = state.replace(key=scratch)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self._body(state.replace(key=scratch), store, x)
+            self._body(warm, store, x)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
 
-        self.gen = torch.Generator(device=dev)
-        self.state = _map(torch.clone, state).replace(key=self.gen)
+        self.gen = torch.Generator(device=dev) if stream else None
+        self.state = _map(torch.clone, state)
         self.store = _map(torch.clone, store)
         self.slot = torch.empty_like(x)
         graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.gen)
+        if stream:
+            self.state = self.state.replace(key=self.gen)
+            graph.register_generator_state(self.gen)
         before = (k1.launches, k2.launches)
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -252,7 +261,8 @@ class ChunkGraph:
                                  f"{tuple(self.slot.shape)}")
             _copy_into(self.state, state)
             _copy_into(self.store, store)
-            self.gen.set_state(state.key.get_state())
+            if self.gen is not None:
+                self.gen.set_state(state.key.get_state())
             rows = torch.empty((frames.shape[0], ROW), dtype=torch.float64,
                                device=dev)
             mode = torch.cuda.get_sync_debug_mode()
@@ -265,7 +275,8 @@ class ChunkGraph:
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
             self.replays += frames.shape[0]
-            state.key.set_state(self.gen.get_state())
+            if self.gen is not None:
+                state.key.set_state(self.gen.get_state())
             return (_map(torch.clone, self.state).replace(key=state.key),
                     _map(torch.clone, self.store), rows)
 

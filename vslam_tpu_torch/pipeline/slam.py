@@ -31,7 +31,6 @@ import numpy as np
 import torch
 
 from ..config import VSLAMConfig
-from ..core.types import PT_COLOR
 from ..mapping import point_map
 from ..optimizer import ba
 from ..parallel import sharded_map
@@ -80,11 +79,13 @@ def _window_gate_stats(problem: ba.BAProblem, sel_prov):
 
 class SLAMSystem:
     """Monocular SLAM over a frame stream, on one device or, with ``mesh``,
-    with the map sharded over the mesh's ``cfg.mesh.axis_map`` axis."""
+    with the map sharded over the mesh's ``cfg.mesh.axis_map`` axis.
+    ``rng="threefry"`` draws RANSAC samples from the reference's own
+    ``jax.random`` stream for ``seed`` (``tracker.init_state``)."""
 
     def __init__(self, cfg: VSLAMConfig, device="cuda",
                  metrics_path: Optional[str] = None, seed: int = 0,
-                 enable_ba: bool = True, mesh=None):
+                 enable_ba: bool = True, mesh=None, rng: str = "torch"):
         self.mesh = mesh
         self._map_axis = cfg.mesh.axis_map
         if mesh is not None:
@@ -102,6 +103,7 @@ class SLAMSystem:
         self.metrics = MetricsLogger(metrics_path)
         self.enable_ba = enable_ba
         self._seed = seed
+        self._rng = rng
         self.state: Optional[tracker.TrackerState] = None
         # the ring holds up to max_keyframes so global BA covers the run
         self.kf_store = keyframes.empty_store(
@@ -134,7 +136,7 @@ class SLAMSystem:
         t0 = time.perf_counter()
         if self.state is None:
             state = tracker.bootstrap(img, self.cfg, self.device,
-                                      seed=self._seed)
+                                      seed=self._seed, rng=self._rng)
             self.state = state.replace(map=self._local(state.map))
             self.trajectory.append(np.eye(4, dtype=np.float32))
             info = {"kind": "frame", "frame": 0, "bootstrap": True,
@@ -237,7 +239,7 @@ class SLAMSystem:
             first = render_fn(inputs[0]) if render_fn is not None \
                 else inputs[0]
             self.state = tracker.bootstrap(first, self.cfg, self.device,
-                                           seed=self._seed)
+                                           seed=self._seed, rng=self._rng)
             self.trajectory.append(np.eye(4, dtype=np.float32))
             self.metrics.log(kind="frame", frame=0, bootstrap=True,
                              wall_s=time.perf_counter() - t0)
@@ -559,7 +561,7 @@ class SLAMSystem:
         alive = _np(m.alive)[:size]
         return {
             "points": _np(m.xyz)[:size][alive],
-            "colors": _np(m.pt[:, PT_COLOR])[:size][alive],
+            "colors": _np(m.color)[:size][alive],
             "poses": self.poses(),
             "keyframe_poses": self.keyframe_poses(),
         }

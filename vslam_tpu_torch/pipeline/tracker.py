@@ -13,7 +13,9 @@ On a CUDA device the step runs without host syncs: no ``.item()``, no
 ``nonzero``, no boolean indexing, no Python ``if`` on a tensor — masks with
 ``torch.where`` replace branches on data, and "drop" scatters go through a
 dump row. The one piece of state mutated in place is ``key``, the
-``torch.Generator`` RANSAC draws from.
+``torch.Generator`` RANSAC draws from; with ``rng="threefry"`` the key is
+instead the reference's fixed Threefry key, and each step draws from
+``fold_in(key, frame_idx)`` as the reference does.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from ..geometry import pnp, ransac, triangulation
 from ..mapping import point_map
 from ..matching import matcher
 from ..matching.hamming import hamming_pairwise
+from ..utils import threefry
 
 
 @dataclasses.dataclass
@@ -45,7 +48,8 @@ class TrackerState(Replace):
     map: MapState
     frame_idx: torch.Tensor     # () i32
     scale: torch.Tensor         # () f32 running translation scale estimate
-    key: torch.Generator        # RANSAC sampling stream (advances per step)
+    key: object                 # RANSAC stream: a torch.Generator (advances
+                                # per step) or a (2,) Threefry key tensor
     vel: torch.Tensor           # (4, 4) last successful relative motion
     pend_uv: torch.Tensor       # (N, 2) f32 pixel at first observation
     pend_P: torch.Tensor        # (N, 3, 4) f32 projection at first obs
@@ -97,8 +101,22 @@ def _cos_rad(deg: float) -> float:
     return float(np.cos(np.deg2rad(np.float32(deg))))
 
 
-def init_state(cfg: VSLAMConfig, device="cuda",
-               seed: int = 0) -> TrackerState:
+RNGS = ("torch", "threefry")
+
+
+def _key(seed: int, rng: str, device):
+    """The RANSAC stream: a ``torch.Generator`` seeded ``seed``, or
+    ``jax.random.PRNGKey(seed)``'s words, which draw the reference's own
+    samples (``utils.threefry``)."""
+    if rng == "threefry":
+        return threefry.key(seed, device)
+    if rng != "torch":
+        raise ValueError(f"rng must be one of {RNGS}, not {rng!r}")
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def init_state(cfg: VSLAMConfig, device="cuda", seed: int = 0,
+               rng: str = "torch") -> TrackerState:
     n = cfg.frontend.max_keypoints
     f32 = dict(dtype=torch.float32, device=device)
     return TrackerState(
@@ -108,7 +126,7 @@ def init_state(cfg: VSLAMConfig, device="cuda",
         map=empty_map(cfg.map.capacity, cfg.map.obs_per_point, device),
         frame_idx=torch.zeros((), dtype=torch.int32, device=device),
         scale=torch.ones((), **f32),
-        key=torch.Generator(device=device).manual_seed(seed),
+        key=_key(seed, rng, device),
         vel=torch.eye(4, **f32),
         pend_uv=torch.zeros((n, 2), **f32),
         pend_P=torch.zeros((n, 3, 4), **f32),
@@ -141,14 +159,14 @@ def _masked_medians(cols, masks, fallbacks):
     return torch.where(n > 0, med, fallbacks)
 
 
-def bootstrap(img, cfg: VSLAMConfig, device="cuda",
-              seed: int = 0) -> TrackerState:
+def bootstrap(img, cfg: VSLAMConfig, device="cuda", seed: int = 0,
+              rng: str = "torch") -> TrackerState:
     """Initialize from the first frame: every keypoint opens a
     delayed-triangulation track."""
     H, W = cfg.camera.height, cfg.camera.width
     img = torch.as_tensor(img, dtype=torch.float32, device=device)
     feats = extract_features(img, cfg.frontend, H, W)
-    st = init_state(cfg, device, seed)
+    st = init_state(cfg, device, seed, rng)
     P0 = cam.projection_matrix(_K(cfg, device), st.pose)
     n = cfg.frontend.max_keypoints
     return st.replace(
@@ -281,8 +299,11 @@ def _step_impl(state: TrackerState, img, cfg: VSLAMConfig, ops: MapOps,
     m_valid = mres.mask
 
     # 3. robust F -> E -> (R, t)
+    key = state.key
+    if isinstance(key, torch.Tensor):
+        key = threefry.fold_in(key, state.frame_idx)
     rres = (pose_fn or ransac.ransac_pose)(
-        state.key, uv1, uv2, m_valid, K,
+        key, uv1, uv2, m_valid, K,
         num_hypotheses=cfg.ransac.num_hypotheses,
         inlier_threshold=cfg.ransac.inlier_threshold,
         min_inliers=cfg.ransac.min_inliers,

@@ -87,10 +87,14 @@ def _write(path: str, system, whole) -> None:
     npz_path, meta_path = _paths(path)
     payload = _flatten(interop.to_numpy(whole), "state", {})
     payload.update(_flatten(interop.to_numpy(system.kf_store), "kf", {}))
-    seed = system.state.key.initial_seed()
-    payload["state/key"] = np.array([seed >> 32, seed & 0xFFFFFFFF],
-                                    np.uint32)
-    payload[_KEY_TORCH] = system.state.key.get_state().numpy()
+    key = system.state.key
+    if isinstance(key, torch.Tensor):       # a Threefry key: its words
+        payload["state/key"] = key.cpu().numpy().astype(np.uint32)
+    else:
+        seed = key.initial_seed()
+        payload["state/key"] = np.array([seed >> 32, seed & 0xFFFFFFFF],
+                                        np.uint32)
+        payload[_KEY_TORCH] = key.get_state().numpy()
     payload["trajectory"] = np.stack(system.trajectory)
     np.savez_compressed(npz_path, **payload)
     meta = {"frame_idx": system.frame_idx, "kf_count": system._kf_count,
@@ -118,11 +122,17 @@ def load_state(path: str, system) -> None:
     system.state = interop.from_jax(state, tracker.TrackerState,
                                     system.device)
     system.state = system.state.replace(map=system._local(system.state.map))
-    # the generator's exact state, where it was saved from a generator of
-    # the same kind (a CUDA generator's state is its seed and offset, a
-    # CPU generator's its Mersenne Twister; across kinds the seed carries)
-    if (key_torch is not None
+    if system._rng == "threefry":
+        # the saved words are the key (the reference saves the same words)
+        system.state = system.state.replace(
+            key=torch.from_numpy(state["key"].astype(np.int64))
+            .to(system.device))
+    elif (key_torch is not None
             and key_torch.size == system.state.key.get_state().numel()):
+        # the generator's exact state, where it was saved from a generator
+        # of the same kind (a CUDA generator's state is its seed and
+        # offset, a CPU generator's its Mersenne Twister; across kinds the
+        # seed carries)
         system.state.key.set_state(torch.from_numpy(key_torch))
     system.kf_store = interop.from_jax(store, keyframes.KeyframeStore,
                                        system.device)

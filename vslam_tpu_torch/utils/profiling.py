@@ -4,7 +4,8 @@
 ``device_trace`` records a ``torch.profiler`` trace (CPU activity, and CUDA
 activity where a card is present) and writes it as Chrome-trace JSON;
 ``summarize_trace`` totals the trace's complete events by name, so hotspots
-can be read without a trace viewer. ``StageTimer`` takes coarse host-clock
+can be read without a trace viewer (``print_trace_summary`` prints them).
+``StageTimer`` takes coarse host-clock
 stage times, fenced by ``torch.cuda.synchronize``. ``event_ms`` and
 ``graph_ms`` give device times from CUDA events, for ``ops.bench_kernels``,
 ``ops.bench_stages`` and ``chip_smoke.py``'s graph timing; they need a card.
@@ -61,6 +62,11 @@ def summarize_trace(outdir: str, top: int = 30
                 rec[1] += 1
     rows = sorted(totals.items(), key=lambda kv: -kv[1][0])[:top]
     return [(name, dur / 1000.0, int(cnt)) for name, (dur, cnt) in rows]
+
+
+def print_trace_summary(outdir: str, top: int = 30) -> None:
+    for name, ms, cnt in summarize_trace(outdir, top):
+        print(f"{ms:10.2f} ms  x{cnt:5d}  {name[:110]}")
 
 
 class StageTimer:
@@ -157,13 +163,30 @@ def nvidia_smi() -> str:
         f"nvidia-smi failed: {r.stderr.strip()}"
 
 
-def host_ms(fn, reps: int = 3) -> float:
-    """Mean host-clock ms of fn() through a ``torch.cuda.synchronize``,
-    after one warm-up call: what an eager caller waits for."""
+def device_record(device) -> dict:
+    """What a result was measured on: the device type and name and, on a
+    card, the card count and nvidia-smi's name and power limit."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {"type": device.type, "name": device.type}
+    return {"type": "cuda", "name": torch.cuda.get_device_name(device),
+            "count": torch.cuda.device_count(), "smi": nvidia_smi()}
+
+
+def synchronize(device=None) -> None:
+    """``torch.cuda.synchronize`` of ``device`` (the current CUDA device
+    when None); nothing for a CPU device, whose work is done on return."""
+    if device is None or torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def host_ms(fn, reps: int = 3, device=None) -> float:
+    """Mean host-clock ms of fn() through a ``synchronize(device)``, after
+    one warm-up call: what an eager caller waits for."""
     fn()
-    torch.cuda.synchronize()
+    synchronize(device)
     t0 = time.perf_counter()
     for _ in range(reps):
         fn()
-    torch.cuda.synchronize()
+    synchronize(device)
     return 1e3 * (time.perf_counter() - t0) / reps
