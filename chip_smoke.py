@@ -112,14 +112,28 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
      split of one LM iteration in device ms (one captured graph) and host
      ms (eager); one KITTI-scale race (256 x 65536 x 8) at base_iters=4
      with its peak device memory, then five more at base_iters=8: each
-     assembly's median, min and max LM iterations/s.
+     assembly's median, min and max LM iterations/s;
+ 17. the steady-state benchmark and the step's profile: (a)
+     ``tools.bench`` at full width (seed 17, ``n_timed`` 40): the carried
+     ``track_step`` as one CUDA graph replayed per frame at live maps of
+     0, 51200 and 120000 points, held to bench.py's asserts (``check``);
+     no host sync inside the replay loop (``"error"`` mode), K1 and K2
+     captured once per step body; prints each segment's frames/s, replay
+     device ms (CUDA events), clocks before and after, and the JSON line;
+     (b) ``ops.profile_step`` over 6 replays at map 51200 under
+     ``torch.profiler``: kernel events in the trace, K1 and K2 once per
+     frame, the kernels' total within 0.5-1.05 of the replays' device ms
+     (CUDA events inside the graph, the same frames run untraced just
+     before; the ratio printed), the by-class and top-kernel tables, and
+     each stage of ``ops.bench_stages`` captured alone with its kernel
+     count.
 
 Each phase prints its seconds. The line before the last but one is one
 JSON object per kernel (route, source, the TPU kernel it replaces, launches
 on the main path of phase 8, on the tracking step of phase 6, in phase
 11's chunks (captured launches times replays), in phase 13's two runs,
-on phase 14a's sharded path and in phase 15a's endurance run (captured
-launches times replays), max |error|
+on phase 14a's sharded path, in phase 15a's endurance run and in phase
+17a's bench (each captured launches times replays), max |error|
 vs the plain version, kernel, plain and library times, and the bound with
 what bounds it); then the nvidia-smi line; the
 last line is ``{"ok": true, "device": {...}}``. No GPU: exits 2 and prints
@@ -1939,6 +1953,76 @@ def run_bench_ba(torch, dev, failures):
     return dict(race=race, split=split, kitti=kitti)
 
 
+def run_bench(torch, dev, failures):
+    """Phase 17a: ``tools.bench`` at full width, seed 17, 40 timed frames:
+    frames/s at live maps of 0, 51200 and 120000 points, each segment's
+    replay device ms (CUDA events) and clocks, bench.py's asserts
+    (``check``), the JSON line. The replay loop runs in ``"error"`` sync
+    mode, so a host sync inside it fails the phase; K1 and K2 must be
+    captured once per step body. Returns the report and each kernel's
+    launches (captured x replays)."""
+    from vslam_tpu_torch.ops import associate as k2
+    from vslam_tpu_torch.ops import hamming
+    from vslam_tpu_torch.tools import bench
+
+    hamming.launches = 0
+    k2.launches = 0
+    t0 = time.perf_counter()
+    report, segments, g = bench.run(dev, seed=17, n_timed=40, log=sys.stdout)
+    captured = {"hamming": hamming.launches, "associate": k2.launches}
+    launches = {k: v * g.replays for k, v in g.captured_launches.items()}
+    print(f"17a bench: {time.perf_counter() - t0:.1f} s; capture "
+          f"{g.capture_s:.2f} s, graph pool peak "
+          f"{g.pool_peak_bytes / 2 ** 20:.1f} MiB; kernels captured per "
+          f"step body {g.captured_launches} x {g.replays} replays = "
+          f"{launches}; 0 host syncs in the replay loops (\"error\" mode)")
+    for label, seg in segments.items():
+        print(f"17a {label}: {seg['fps']:.3f} frames/s (host clock, "
+              f"differenced), replay {seg['replay_ms']:.4f} device ms/frame "
+              f"(CUDA events), t_half {seg['t_half']:.4f} s, t_full "
+              f"{seg['t_full']:.4f} s")
+    print(json.dumps(report))
+    print(_smi())
+    _check_report(bench.check, report, "17a", failures, segments)
+    # the counters hold the capture's launch and the warm-up's eager one
+    if g.captured_launches != {"hamming": 1, "associate": 1} \
+            or captured != {"hamming": 2, "associate": 2}:
+        failures.append(f"17a: kernels captured {g.captured_launches}, "
+                        f"counted {captured}")
+    return dict(report=report, segments=segments, launches=launches)
+
+
+def run_profile(torch, dev, failures):
+    """Phase 17b: ``ops.profile_step`` over 6 replays of the carried step
+    at map 51200: the trace holds kernel events, K1 and K2 once per frame,
+    the kernels' total within 0.5-1.05 of the replays' device ms (CUDA
+    events inside the graph, untraced); the tables; each stage of ``ops.bench_stages`` alone, its kernels
+    per replay."""
+    from vslam_tpu_torch.ops import profile_step
+
+    out = tempfile.mkdtemp(prefix="profile_step_")
+    n = 6
+    res = profile_step.profile(dev, n, out)
+    print("17b " + res["header"])
+    profile_step.print_tables(res)
+    per = profile_step.by_class(res["ms"], res["count"])[1]
+    ratio = res["kernel_ms"] / res["event_ms"]
+    print(f"17b: K1 {per['K1 hamming']}, K2 "
+          f"{per['K2 associate']} kernel events over {n} frames; "
+          f"kernels / replays' CUDA-event ms {ratio:.4f}")
+    for k in ("K1 hamming", "K2 associate"):
+        if per[k] != n:
+            failures.append(f"17b: {k} {per[k]} events in {n} frames")
+    if not 0.5 <= ratio <= 1.05:
+        failures.append(f"17b: kernels {res['kernel_ms']:.3f} ms against "
+                        f"{res['event_ms']:.3f} ms of replays (CUDA events)")
+    profile_step.print_stages(profile_step.stage_kernels(
+        dev, os.path.join(out, "stages")))
+    return dict(ratio=ratio,
+                ms_frame=res["kernel_ms"] / n,
+                kernels_frame=profile_step.n_kernels(res["count"]) / n)
+
+
 def main() -> int:
     import torch
 
@@ -2014,6 +2098,10 @@ def main() -> int:
     phase_done(15)
     ba_bench = run_bench_ba(torch, dev, failures)
     phase_done(16)
+    bench_res = run_bench(torch, dev, failures)
+    phase_done("17a")
+    prof = run_profile(torch, dev, failures)
+    phase_done("17b")
 
     # launches: the SLAM path's (phase 8); the tracking step's own run
     # (phase 6) is kept beside it
@@ -2028,7 +2116,8 @@ def main() -> int:
              launches_variants_chunked=variants["chunk"]["launches"][
                  "hamming"],
              launches_sharded=sharded_launches["hamming"],
-             launches_endurance=endurance_launches["hamming"], **k1),
+             launches_endurance=endurance_launches["hamming"],
+             launches_bench=bench_res["launches"]["hamming"], **k1),
         dict(name="associate", route="cuda",
              source="vslam_tpu_torch/csrc/associate.cu",
              replaces="vslam_tpu/ops/pallas_associate.py:71",
@@ -2039,7 +2128,8 @@ def main() -> int:
              launches_variants_chunked=variants["chunk"]["launches"][
                  "associate"],
              launches_sharded=sharded_launches["associate"],
-             launches_endurance=endurance_launches["associate"], **k2),
+             launches_endurance=endurance_launches["associate"],
+             launches_bench=bench_res["launches"]["associate"], **k2),
     ]
     for f in failures:
         print("FAIL:", f)
@@ -2067,6 +2157,12 @@ def main() -> int:
           + "; BA 20x8192x16 (phase 16) " + ", ".join(
               f"{a} {r['lm_iterations_per_sec']} it/s"
               for a, r in ba_bench["race"].items())
+          + "; bench (phase 17a) frames/s " + ", ".join(
+              f"{k} {v['fps']:.3f} (replay {v['replay_ms']:.3f} ms)"
+              for k, v in bench_res["segments"].items())
+          + f"; profile (phase 17b, graph) "
+          f"{prof['ms_frame']:.3f} kernel ms/frame, "
+          f"{prof['kernels_frame']:.0f} kernels/frame"
           + f" ({name}; {smi})")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -90,7 +90,7 @@ def main() -> int:
            + field_diffs(a[1], b[1]))
     report("one frame, track_step vs body",
            field_diffs(tracker.track_step(clone_state(st0), x, cfg)[0], a[0]))
-    g = scan_driver.ChunkGraph(cfg, hw, mf)
+    g = scan_driver.frame_graph(cfg, hw, mf)
     c = g.run(clone_state(st0), sr0, x[None])
     report("one frame, graph vs eager", field_diffs(c[0], a[0])
            + field_diffs(c[1], a[1])

@@ -561,6 +561,72 @@ def test_chunk_capture_failure_raises(cuda):
     assert s.chunk_graphs[syncing].graph is None
 
 
+def _tensors(obj, path=""):
+    """(name, tensor) of every tensor of a dataclass of tensors, nested
+    dataclasses included."""
+    out = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            out += _tensors(v, path + f.name + ".")
+        elif isinstance(v, torch.Tensor):
+            out.append((path + f.name, v))
+    return out
+
+
+@pytest.mark.parametrize("rng", ["torch", "threefry"])
+def test_bench_graph_matches_eager_step_on_cuda(cuda, rng):
+    """tools.bench's carried loop (``scan_driver.step_graph``: track_step
+    captured once, replayed per frame) over 4 frames on a map holding 2048
+    distractors, bit for bit equal to eager track_step on the card: every
+    row and the final state; each kernel captured once and replayed 4
+    times."""
+    from vslam_tpu_torch.pipeline import scan_driver, tracker
+    from vslam_tpu_torch.tools import bench
+    frames = torch.from_numpy(_chunk_scene(5)).to(cuda)
+
+    def start():
+        st = tracker.bootstrap(frames[0], CFG, cuda, rng=rng)
+        return bench.prepopulate(st, 2048, 5, rng)
+
+    want, rows = start(), []
+    for t in range(1, 5):
+        want, _, row = scan_driver.step_body(want, None, frames[t], CFG)
+        rows.append(row)
+    g = scan_driver.step_graph(CFG)
+    got, got_rows = scan_driver.carried(start(), frames[1:], CFG, g)
+    assert torch.equal(got_rows, torch.stack(rows))
+    assert scan_driver.ChunkScalars.unpack(got_rows.cpu().numpy()) \
+        .success.sum() >= 3
+    for (name, a), (_, b) in zip(_tensors(got), _tensors(want)):
+        assert torch.equal(a, b), name
+    assert g.captured_launches == {"hamming": 1, "associate": 1}
+    assert g.replays == 4
+
+
+def test_step_graph_span_events_on_cuda(cuda):
+    """``ChunkGraph(span=True)`` (the profiler's replays): the events
+    recorded inside the graph leave every row as the plain graph gives it,
+    and ``span_ms`` reads a positive device time for each replay."""
+    from vslam_tpu_torch.pipeline import scan_driver, tracker
+    from vslam_tpu_torch.tools import bench
+    frames = torch.from_numpy(_chunk_scene(4)).to(cuda)
+
+    def start():
+        st = tracker.bootstrap(frames[0], CFG, cuda, rng="threefry")
+        return bench.prepopulate(st, 2048, 5, "threefry")
+
+    want = scan_driver.carried(start(), frames[1:], CFG,
+                               scan_driver.step_graph(CFG))[1]
+    g = scan_driver.step_graph(CFG, span=True)
+    s, rows = start(), []
+    for t in range(1, 4):
+        s, row = scan_driver.carried(s, frames[t:t + 1], CFG, g)
+        rows.append(row)
+        assert g.span_ms() > 0
+    assert torch.equal(torch.cat(rows), want)
+
+
 # ---- the front-end variants (oriented, track_carry) ------------------------
 
 def _variant_frames(seed=3):

@@ -16,6 +16,10 @@ host-dependent control flow:
     cursor reaches ``high_water``; it is computed on every frame and kept
     only where the trigger fired.
 
+``step_body`` is the step alone (no keyframe, no maintenance), the body
+of ``tools.bench``'s carried loop; ``carried`` runs it as ``run_chunk``
+runs ``frame_body``.
+
 On a CPU device ``run_chunk`` is a Python loop over ``frame_body``. On a
 CUDA device it is ``ChunkGraph``: the body captured once as a CUDA graph on
 static buffers (one copy of the tracker state, one of the keyframe store,
@@ -31,6 +35,7 @@ caller fetches all rows of a chunk in one transfer.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import NamedTuple, Optional
 
@@ -108,7 +113,10 @@ def _fields(obj):
 
 def _map(fn, obj):
     """``fn`` on every tensor of a dataclass of tensors (nested dataclasses
-    recursed into; anything else, such as the generator, kept)."""
+    recursed into; anything else, such as the generator, kept; None
+    stays None)."""
+    if obj is None:
+        return None
     return type(obj)(**{
         k: _map(fn, v) if dataclasses.is_dataclass(v)
         else fn(v) if isinstance(v, torch.Tensor) else v
@@ -125,7 +133,10 @@ def _select(cond, a, b):
 
 
 def _copy_into(dst, src):
-    """Copy every tensor of ``src`` into the same field of ``dst``."""
+    """Copy every tensor of ``src`` into the same field of ``dst`` (nothing
+    when ``dst`` is None)."""
+    if dst is None:
+        return
     for k, v in _fields(dst):
         if dataclasses.is_dataclass(v):
             _copy_into(v, getattr(src, k))
@@ -168,8 +179,18 @@ def frame_body(st: tracker.TrackerState, sr: kf_mod.KeyframeStore, x,
     return st3, sr3, pack(out, do_insert, need)
 
 
+def step_body(st: tracker.TrackerState, sr, x, cfg: VSLAMConfig):
+    """One ``track_step`` alone, with no keyframe insert and no
+    maintenance (bench.py's scan body). ``sr`` passes through (None: no
+    keyframe store). Returns (state, sr, row), ``row`` in ``pack``'s
+    layout."""
+    st, out = tracker.track_step(st, x, cfg)
+    no = torch.zeros_like(out.success)
+    return st, sr, pack(out, no, no)
+
+
 class ChunkGraph:
-    """``frame_body`` captured once as a CUDA graph, replayed per frame.
+    """``body`` captured once as a CUDA graph, replayed per frame.
 
     The first ``run`` warms the body up eagerly on a side stream (constant
     uploads, the kernels' build and K2's grid query, library handles: host
@@ -179,29 +200,32 @@ class ChunkGraph:
     ``copy_``, and the RANSAC generator is registered with the graph, so
     each replay draws what the eager step would draw next.
 
+    ``body(state, store, x) -> (state, store, row)`` is ``frame_body`` or
+    ``step_body`` with its settings bound (``frame_graph``,
+    ``step_graph``); one that carries no keyframe store is run with
+    ``store=None``.
+
     Python launch counters count the capture, not the replays:
     ``captured_launches`` holds each kernel's launches in one frame body
     and ``replays`` the frames run, so a run launched each kernel
     ``captured_launches[k] * replays`` times. ``capture_s`` (warm-up and
     capture, host clock) and ``pool_peak_bytes`` (the graph pool's peak
     allocation during capture) are kept for the record.
+
+    With ``span=True`` the graph records a CUDA event (``external``) first
+    and last, so ``span_ms`` reads the device time of the latest replay,
+    from its first node to its last, without the host's time between
+    replays (which a profiler's per-node work inflates).
     """
 
-    def __init__(self, cfg: VSLAMConfig, high_water: int, min_free: int,
-                 render_fn=None):
-        self.cfg = cfg
-        self.high_water = high_water
-        self.min_free = min_free
-        self.render_fn = render_fn
+    def __init__(self, body, span: bool = False):
+        self.body = body
+        self.span = span
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.captured_launches: dict = {}
         self.replays = 0
         self.capture_s: Optional[float] = None
         self.pool_peak_bytes: Optional[int] = None
-
-    def _body(self, st, sr, x):
-        return frame_body(st, sr, x, self.cfg, self.high_water,
-                          self.min_free, self.render_fn)
 
     def _capture(self, state, store, x):
         dev = x.device
@@ -218,7 +242,7 @@ class ChunkGraph:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self._body(warm, store, x)
+            self.body(warm, store, x)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
 
@@ -233,10 +257,17 @@ class ChunkGraph:
         before = (k1.launches, k2.launches)
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
+        if self.span:
+            self.events = [torch.cuda.Event(enable_timing=True,
+                                            external=True) for _ in range(2)]
         with torch.cuda.graph(graph):
-            st, sr, row = self._body(self.state, self.store, self.slot)
+            if self.span:
+                self.events[0].record()
+            st, sr, row = self.body(self.state, self.store, self.slot)
             _copy_into(self.state, st)
             _copy_into(self.store, sr)
+            if self.span:
+                self.events[1].record()
         torch.cuda.synchronize(dev)
         self.row = row
         self.pool_peak_bytes = torch.cuda.max_memory_allocated(dev) - base
@@ -244,6 +275,11 @@ class ChunkGraph:
                                   "associate": k2.launches - before[1]}
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
+
+    def span_ms(self) -> float:
+        """Device ms of the latest replay (``span=True``; waits for it)."""
+        self.events[1].synchronize()
+        return self.events[0].elapsed_time(self.events[1])
 
     def run(self, state, store, frames):
         """Track ``frames`` (T, ...) on the card. Returns (state, store,
@@ -295,21 +331,52 @@ def run_chunk(state: tracker.TrackerState, store: kf_mod.KeyframeStore,
         (H, W) image on the device.
       high_water / min_free: maintenance trigger and target, as in
         ``SLAMSystem``.
-      graph: on CUDA, the ``ChunkGraph`` to replay (captured on its first
-        run); a new one when None. Ignored on the CPU.
+      graph: on CUDA, the ``frame_graph`` to replay (captured on its
+        first run); a new one when None. Ignored on the CPU.
     Returns (state, store, rows), ``rows`` (T, ROW) float64 on the device
     (``ChunkScalars.unpack`` of its host copy gives the named fields).
     """
+    return _run(_frame_fn(cfg, high_water, min_free, render_fn), state,
+                store, frames, graph)
+
+
+def carried(state: tracker.TrackerState, frames, cfg: VSLAMConfig,
+            graph: Optional[ChunkGraph] = None):
+    """Track ``frames`` (T, H, W) with ``step_body``, bench.py's carried
+    loop: ``graph`` (``step_graph``; a new one when None) replayed on
+    CUDA, a Python loop on the CPU. Returns (state, rows), ``rows`` (T,
+    ROW) float64 on the device."""
+    state, _, rows = _run(functools.partial(step_body, cfg=cfg), state,
+                          None, frames, graph)
+    return state, rows
+
+
+def frame_graph(cfg: VSLAMConfig, high_water: int, min_free: int,
+                render_fn=None) -> ChunkGraph:
+    """A ``ChunkGraph`` of ``frame_body`` with these settings."""
+    return ChunkGraph(_frame_fn(cfg, high_water, min_free, render_fn))
+
+
+def step_graph(cfg: VSLAMConfig, span: bool = False) -> ChunkGraph:
+    """A ``ChunkGraph`` of ``step_body``."""
+    return ChunkGraph(functools.partial(step_body, cfg=cfg), span)
+
+
+def _frame_fn(cfg, high_water, min_free, render_fn):
+    return functools.partial(frame_body, cfg=cfg, high_water=high_water,
+                             min_free=min_free, render_fn=render_fn)
+
+
+def _run(body, state, store, frames, graph):
+    """``body`` over ``frames``: ``graph`` (``ChunkGraph(body)`` when None)
+    on CUDA, a Python loop on the CPU."""
     dev = state.pose.device
     if dev.type == "cuda":
-        if graph is None:
-            graph = ChunkGraph(cfg, high_water, min_free, render_fn)
-        return graph.run(state, store, frames)
+        return (graph or ChunkGraph(body)).run(state, store, frames)
     if dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     rows = []
     for t in range(frames.shape[0]):
-        state, store, row = frame_body(state, store, frames[t], cfg,
-                                       high_water, min_free, render_fn)
+        state, store, row = body(state, store, frames[t])
         rows.append(row)
     return state, store, torch.stack(rows)

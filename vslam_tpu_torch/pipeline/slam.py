@@ -252,7 +252,7 @@ class SLAMSystem:
         if self.device.type == "cuda":
             graph = self.chunk_graphs.get(render_fn)
             if graph is None:
-                graph = self.chunk_graphs[render_fn] = scan_driver.ChunkGraph(
+                graph = self.chunk_graphs[render_fn] = scan_driver.frame_graph(
                     self.cfg, self._maint_high_water, self._maint_min_free,
                     render_fn)
         fresh = graph is not None and graph.graph is None

@@ -1,8 +1,9 @@
-"""Long-run and BA tools of the port: ``bench_ba``, ``endurance_device``
-and ``endurance`` (counterparts of the repository's ``bench_ba.py`` and
-``scripts/endurance*.py``). Each runs as ``python -m
-vslam_tpu_torch.tools.<name>`` on ``--device cuda`` by default and exits 2
-when that device is not available; ``--device cpu`` runs it on the CPU.
+"""Benchmark, long-run and BA tools of the port: ``bench``, ``bench_ba``,
+``endurance_device`` and ``endurance`` (counterparts of the repository's
+``bench.py``, ``bench_ba.py`` and ``scripts/endurance*.py``). Each runs
+as ``python -m vslam_tpu_torch.tools.<name>`` on ``--device cuda`` by
+default and exits 2 when that device is not available; ``--device cpu``
+runs it on the CPU.
 """
 from __future__ import annotations
 

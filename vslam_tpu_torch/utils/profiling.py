@@ -8,7 +8,10 @@ can be read without a trace viewer (``print_trace_summary`` prints them).
 ``StageTimer`` takes coarse host-clock
 stage times, fenced by ``torch.cuda.synchronize``. ``event_ms`` and
 ``graph_ms`` give device times from CUDA events, for ``ops.bench_kernels``,
-``ops.bench_stages`` and ``chip_smoke.py``'s graph timing; they need a card.
+``ops.bench_stages`` and ``chip_smoke.py``'s graph timing (``capture``
+makes the graph); they need a card. ``device_record`` names what a result
+ran on, with nvidia-smi's name and power limit; ``clocks`` reads the SM
+clock, temperature and clock-event reasons.
 ``chip_smoke.py`` keeps its own single-call timers (``_time_each_ms``,
 ``_time_ms``) because ``scripts/time_kernels.py --root`` loads them from
 older checkouts, which have no ``utils/profiling.py``.
@@ -122,11 +125,9 @@ def graph_ms(fn, reps: int = 10, generators=()) -> float:
     return sum(graph_times_ms(fn, reps, generators)) / reps
 
 
-def graph_times_ms(fn, reps: int = 10, generators=()) -> List[float]:
-    """Device ms of each of ``reps`` back-to-back replays of ``fn`` captured
-    once as a CUDA graph (a CUDA event between replays): the device time of
-    fn's kernels without the host's launch cost. ``fn`` runs once eagerly
-    on a side stream first (allocations and first-use work that a capture
+def capture(fn, generators=()) -> "torch.cuda.CUDAGraph":
+    """``fn`` captured once as a CUDA graph. ``fn`` runs once eagerly on a
+    side stream first (allocations and first-use work that a capture
     forbids); ``generators`` are registered with the graph."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -139,6 +140,14 @@ def graph_times_ms(fn, reps: int = 10, generators=()) -> List[float]:
         g.register_generator_state(gen)
     with torch.cuda.graph(g):
         fn()
+    return g
+
+
+def graph_times_ms(fn, reps: int = 10, generators=()) -> List[float]:
+    """Device ms of each of ``reps`` back-to-back replays of ``fn`` captured
+    once as a CUDA graph (``capture``; a CUDA event between replays): the
+    device time of fn's kernels without the host's launch cost."""
+    g = capture(fn, generators)
     g.replay()
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
@@ -150,17 +159,45 @@ def graph_times_ms(fn, reps: int = 10, generators=()) -> List[float]:
     return [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
 
 
+def _smi_query(fields, index=None):
+    """nvidia-smi's csv values of ``fields`` for card ``index`` (the
+    first card when None), or the failure's text as a str."""
+    cmd = ["nvidia-smi", f"--query-gpu={','.join(fields)}",
+           "--format=csv,noheader"]
+    if index is not None:
+        cmd.append(f"--id={index}")
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True, timeout=60)
+    except OSError as e:
+        return f"nvidia-smi failed: {e}"
+    if r.returncode != 0:
+        return f"nvidia-smi failed: {r.stderr.strip() or r.stdout.strip()}"
+    return [v.strip() for v in r.stdout.strip().splitlines()[0].split(",")]
+
+
 def nvidia_smi() -> str:
     """The card's name and power limit as nvidia-smi reports them, to keep
     beside every device number."""
-    try:
-        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                            "--format=csv,noheader"], capture_output=True,
-                           text=True, timeout=60)
-    except OSError as e:
-        return f"nvidia-smi failed: {e}"
-    return r.stdout.strip().splitlines()[0] if r.returncode == 0 else \
-        f"nvidia-smi failed: {r.stderr.strip()}"
+    v = _smi_query(("name", "power.limit"))
+    return v if isinstance(v, str) else ", ".join(v)
+
+
+CLOCK_FIELDS = ("clocks.sm", "clocks.max.sm", "temperature.gpu",
+                "clocks_event_reasons.active")
+
+
+def clocks(device) -> dict:
+    """nvidia-smi's SM clock, its maximum, the temperature (C) and the
+    active clock-event reasons (a bitmask, 0x0 when nothing holds the
+    clock down) of a card, as nvidia-smi prints them; {} for a device that
+    is not a card, {"error": ...} when nvidia-smi fails."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return {}
+    v = _smi_query(CLOCK_FIELDS, device.index)
+    if isinstance(v, str):
+        return {"error": v}
+    return dict(zip(CLOCK_FIELDS, v))
 
 
 def device_record(device) -> dict:

@@ -69,6 +69,36 @@ def bits(k: torch.Tensor, shape) -> torch.Tensor:
     return a ^ b
 
 
+def fma(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as XLA computes the product and
+    sum it contracts into one fused multiply-add. The product of two
+    float32 values is exact in float64; the sum is rounded to odd there
+    (its error from a two-sum made sticky in the last bit), so the one
+    rounding to float32 that follows is the correct rounding."""
+    a, b, c = (torch.as_tensor(x, dtype=torch.float64) for x in (a, b, c))
+    p = a * b
+    s = p + c
+    bp = s - c
+    err = (p - bp) + (c - (s - bp))
+    w = s.view(torch.int64)
+    step = torch.where((err > 0) == (s > 0), 1, -1)
+    w = torch.where((err != 0) & (w & 1 == 0), w + step, w)
+    return w.view(torch.float64).to(torch.float32)
+
+
+def uniform(k: torch.Tensor, shape, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, float32, minval, maxval)``: the top 23
+    bits of each word as the mantissa of a float in [1, 2), minus 1, then
+    ``* (maxval - minval) + minval`` as one fused multiply-add (``fma``, as
+    XLA contracts it) and ``max(minval, .)``."""
+    f32 = dict(dtype=torch.float32, device=k.device)
+    lo = torch.tensor(minval, **f32)
+    span = torch.tensor(maxval, **f32) - lo
+    mant = ((bits(k, shape) >> 9) | 0x3F800000).to(torch.int32)
+    return torch.maximum(lo, fma(mant.view(torch.float32) - 1.0, span, lo))
+
+
 def randint(k: torch.Tensor, shape, maxval) -> torch.Tensor:
     """``jax.random.randint(k, shape, 0, maxval)`` for an int32 ``maxval``
     (a Python int or a 0-d tensor): two words per value, reduced modulo
