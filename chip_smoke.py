@@ -122,11 +122,16 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
      device ms (CUDA events), clocks before and after, and the JSON line;
      (b) ``ops.profile_step`` over 6 replays at map 51200 under
      ``torch.profiler``: kernel events in the trace, K1 and K2 once per
-     frame, the kernels' total within 0.5-1.05 of the replays' device ms
-     (CUDA events inside the graph, the same frames run untraced just
+     frame, the kernels' total within 0.95-1.10 of the replays' device
+     ms (CUDA events inside the graph, the same frames run untraced just
      before; the ratio printed), the by-class and top-kernel tables, and
      each stage of ``ops.bench_stages`` captured alone with its kernel
-     count.
+     count; (c) 8 fresh captures of the carried step at map 51200 (6
+     here, 2 in spawned processes), each one's nodes by type (equal in
+     all) and median replay device ms over 24 replays: one mode, the
+     slowest median within 3% of the fastest. No phase sets a stream, as
+     a user's program need not: the first graph run moves the thread onto
+     the card's graph stream (``utils.profiling.use_graph_stream``).
 
 Each phase prints its seconds. The line before the last but one is one
 JSON object per kernel (route, source, the TPU kernel it replaces, launches
@@ -1992,12 +1997,15 @@ def run_bench(torch, dev, failures):
     return dict(report=report, segments=segments, launches=launches)
 
 
+RATIO_17B = (0.95, 1.10)
+
+
 def run_profile(torch, dev, failures):
     """Phase 17b: ``ops.profile_step`` over 6 replays of the carried step
     at map 51200: the trace holds kernel events, K1 and K2 once per frame,
-    the kernels' total within 0.5-1.05 of the replays' device ms (CUDA
-    events inside the graph, untraced); the tables; each stage of ``ops.bench_stages`` alone, its kernels
-    per replay."""
+    the kernels' total within ``RATIO_17B`` of the replays' device ms (CUDA
+    events inside the graph, untraced); the tables; each stage of
+    ``ops.bench_stages`` alone, its kernels per replay."""
     from vslam_tpu_torch.ops import profile_step
 
     out = tempfile.mkdtemp(prefix="profile_step_")
@@ -2013,7 +2021,12 @@ def run_profile(torch, dev, failures):
     for k in ("K1 hamming", "K2 associate"):
         if per[k] != n:
             failures.append(f"17b: {k} {per[k]} events in {n} frames")
-    if not 0.5 <= ratio <= 1.05:
+    # on its graph stream the step runs in one mode, where CUPTI's
+    # lengthening of its ~1 us kernels puts their traced total 4-5% above
+    # the untraced replays (1.0407); a ratio under 0.95 is replays idling
+    # between nodes (the slow mode read 0.85) or kernels missing from the
+    # trace, one over 1.10 replays not timed whole (PERF.md §6)
+    if not RATIO_17B[0] <= ratio <= RATIO_17B[1]:
         failures.append(f"17b: kernels {res['kernel_ms']:.3f} ms against "
                         f"{res['event_ms']:.3f} ms of replays (CUDA events)")
     profile_step.print_stages(profile_step.stage_kernels(
@@ -2021,6 +2034,63 @@ def run_profile(torch, dev, failures):
     return dict(ratio=ratio,
                 ms_frame=res["kernel_ms"] / n,
                 kernels_frame=profile_step.n_kernels(res["count"]) / n)
+
+
+# phase 17c: captures read in this process and in spawned ones; one mode
+# is a spread of at most MODE_SPREAD between their median replays
+N_MODES_HERE, N_MODES_SPAWNED, MODE_SPREAD = 6, 2, 0.03
+
+
+def run_capture_modes(torch, dev, failures):
+    """Phase 17c: 8 fresh captures of the carried step at map 51200
+    (``tools.bench.capture_modes``: 24 single-frame replays each, device ms
+    by CUDA events inside the graph), 6 in this process and 2 in spawned
+    processes that start on the default stream, each one's nodes by type
+    and median replay printed, and the spread of the medians with the
+    card's name and power limit. The phase fails when a capture does not
+    run, when two captures hold other nodes, or when the slowest median
+    exceeds the fastest by more than 3%: work that changed streams around
+    the graph put captures in a mode ~23% slower (PERF.md §6)."""
+    from vslam_tpu_torch.tools import bench
+
+    recs = [dict(r, process="this") for r in
+            bench.capture_modes(dev, N_MODES_HERE)]
+    code = ("import json, torch; from vslam_tpu_torch.tools import bench; "
+            "print(json.dumps(bench.capture_modes(torch.device('cuda', 0), "
+            "1)))")
+    here = os.path.dirname(os.path.abspath(__file__))
+    for i in range(N_MODES_SPAWNED):
+        r = subprocess.run([sys.executable, "-c", code], cwd=here,
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            failures.append(f"17c: spawned capture {i + 1} failed: "
+                            f"{r.stderr[-1500:]}")
+            continue
+        recs += [dict(x, process=f"spawned {i + 1}")
+                 for x in json.loads(r.stdout.strip().splitlines()[-1])]
+    for i, r in enumerate(recs):
+        print(f"17c capture {i} ({r['process']} process): nodes "
+              f"{r['nodes']}; replay "
+              f"median {r['median_ms']:.4f} device ms (min "
+              f"{min(r['span_ms']):.4f}, max {max(r['span_ms']):.4f}, "
+              f"{len(r['span_ms'])} replays); capture {r['capture_s']:.2f} s")
+    med = [r["median_ms"] for r in recs]
+    spread = max(med) / min(med) - 1 if med else float("inf")
+    fast = sum(m <= min(med) * (1 + MODE_SPREAD) for m in med)
+    print(f"17c: {len(recs)} captures ({N_MODES_SPAWNED} in spawned "
+          f"processes), median replays {min(med):.4f}-{max(med):.4f} device "
+          f"ms, slowest / fastest - 1 = {spread:.4f}: "
+          + ("one mode" if spread <= MODE_SPREAD else
+             f"two modes, {fast} within {MODE_SPREAD:.0%} of the fastest")
+          + f"; {_smi()}")
+    if len(recs) != N_MODES_HERE + N_MODES_SPAWNED:
+        failures.append(f"17c: {len(recs)} captures ran")
+    if any(r["nodes"] != recs[0]["nodes"] for r in recs):
+        failures.append("17c: captures of one step hold other nodes")
+    if spread > MODE_SPREAD:
+        failures.append(f"17c: medians {min(med):.4f}-{max(med):.4f} ms, "
+                        f"spread {spread:.4f} > {MODE_SPREAD}")
+    return dict(records=recs, spread=spread)
 
 
 def main() -> int:
@@ -2102,6 +2172,8 @@ def main() -> int:
     phase_done("17a")
     prof = run_profile(torch, dev, failures)
     phase_done("17b")
+    modes = run_capture_modes(torch, dev, failures)
+    phase_done("17c")
 
     # launches: the SLAM path's (phase 8); the tracking step's own run
     # (phase 6) is kept beside it
@@ -2163,6 +2235,9 @@ def main() -> int:
           + f"; profile (phase 17b, graph) "
           f"{prof['ms_frame']:.3f} kernel ms/frame, "
           f"{prof['kernels_frame']:.0f} kernels/frame"
+          + "; capture modes (phase 17c) median replays "
+          + ", ".join(f"{r['median_ms']:.3f}" for r in modes["records"])
+          + f" ms, spread {modes['spread']:.4f}"
           + f" ({name}; {smi})")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -127,9 +127,22 @@ def orthonormalize_T(T, iters: int = 2):
     eye = _eye3(T)
     for _ in range(iters):
         R = R @ (1.5 * eye - 0.5 * R.transpose(-1, -2) @ R)
-    out = T.clone()
-    out[..., :3, :3] = R
-    return out
+    return with_rotation(T, R)
+
+
+def with_rotation(T, R):
+    """(…, 4, 4) T with its rotation block replaced by R (…, 3, 3), out of
+    place by concatenation (a clone and an assignment would copy T with a
+    device-to-device memcpy, a copy node in a CUDA graph)."""
+    return torch.cat([torch.cat([R, T[..., :3, 3:]], dim=-1),
+                      T[..., 3:, :]], dim=-2)
+
+
+def with_translation(T, t):
+    """(…, 4, 4) T with its translation replaced by t (…, 3), out of place
+    as ``with_rotation``."""
+    return torch.cat([torch.cat([T[..., :3, :3], t[..., :, None]], dim=-1),
+                      T[..., 3:, :]], dim=-2)
 
 
 def transform_points(T, X):

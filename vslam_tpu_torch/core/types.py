@@ -155,9 +155,10 @@ def scatter_drop(base, idx, values, accumulate: bool = False):
     dump row that is sliced off again, rather than through a boolean filter
     (which would sync on CUDA). Returns a new tensor; ``base`` is untouched.
     """
-    buf = torch.empty((base.shape[0] + 1,) + tuple(base.shape[1:]),
-                      dtype=base.dtype, device=base.device)
-    buf[:-1] = base
+    # a cat, not a slice assignment: copying base into a slice of an empty
+    # buffer would be a device-to-device memcpy (a copy node in a graph);
+    # the dump row is left unset (its value is never read)
+    buf = torch.cat([base, base.new_empty((1,) + tuple(base.shape[1:]))])
     buf.index_put_((idx,), values.to(base.dtype).expand(
         (idx.shape[0],) + tuple(base.shape[1:])), accumulate=accumulate)
     return buf[:-1]
@@ -170,7 +171,7 @@ def last_writes(idx, dump: int):
     scatter keeps the last, and so does ``scatter_drop`` of the result."""
     order = torch.sort(idx, stable=True).indices
     s = idx[order]
-    last = torch.ones_like(s, dtype=torch.bool)
-    last[:-1] = s[1:] != s[:-1]
+    last = torch.cat([s[1:] != s[:-1],
+                      torch.ones((1,), dtype=torch.bool, device=s.device)])
     keep = torch.empty_like(last).scatter_(0, order, last)
     return torch.where(keep, idx, dump)

@@ -35,20 +35,41 @@ def _round_robin_schedule(n):
 
 @functools.lru_cache(maxsize=None)
 def _rounds(n, device):
-    """The schedule as device tensors: per round (ps, qs, mask), mask (n, n)
-    True at the round's (p, q) and (q, p) entries."""
+    """The schedule as device tensors, per round: ps, qs (the round's
+    pairs), ``pair_of`` (n,) the pair each index belongs to (0 for the idle
+    index of an odd n), ``sign`` (n,) -1 at the qs and 1 elsewhere,
+    ``partner`` (n,) q for p, p for q and i for an idle i, ``paired`` (n,)
+    True but at the idle index, and ``pair_mask`` (n, n) True at the
+    round's (p, q) and (q, p) entries."""
     out = []
     for pairs in _round_robin_schedule(n):
         hit = {(p, q) for p, q in pairs} | {(q, p) for p, q in pairs}
         mask = tuple(tuple((i, j) in hit for j in range(n)) for i in range(n))
-        out.append((
-            device_constant(tuple(p for p, _ in pairs), torch.long, device),
-            device_constant(tuple(q for _, q in pairs), torch.long, device),
-            device_constant(mask, torch.bool, device)))
+        pair_of, sign, partner = [0] * n, [1.0] * n, list(range(n))
+        for k, (p, q) in enumerate(pairs):
+            pair_of[p] = pair_of[q] = k
+            sign[q] = -1.0
+            partner[p], partner[q] = q, p
+        out.append(tuple(device_constant(v, dt, device) for v, dt in (
+            (tuple(p for p, _ in pairs), torch.long),
+            (tuple(q for _, q in pairs), torch.long),
+            (tuple(pair_of), torch.long), (tuple(sign), torch.float32),
+            (tuple(partner), torch.long),
+            (tuple(i != j for i, j in enumerate(partner)), torch.bool),
+            (mask, torch.bool))))
     return out
 
 
-def _round_step(A, V, ps, qs, pair_mask):
+def _rotate(X, c, s, partner, paired, dim):
+    """The round's rotations applied along ``dim`` (-2: rows, -1: columns)
+    of X, out of place: index i becomes ``c_i X_i + s_i X_partner(i)`` where
+    it is paired, with (c_i, s_i) = (c, s) at a p and (c, -s) at a q, so p'
+    = c X_p + s X_q and q' = -s X_p + c X_q; an idle index keeps X_i."""
+    rot = c * X + s * X.index_select(dim, partner)
+    return torch.where(paired[:, None] if dim == -2 else paired, rot, X)
+
+
+def _round_step(A, V, ps, qs, pair_of, sign, partner, paired, pair_mask):
     diag = torch.diagonal(A, dim1=-2, dim2=-1)
     app = diag[..., ps]
     aqq = diag[..., qs]
@@ -63,26 +84,19 @@ def _round_step(A, V, ps, qs, pair_mask):
     c = torch.where(tiny, 1.0, c)
     s = torch.where(tiny, 0.0, s)
 
-    cc = c[..., None]
-    ss = s[..., None]
-    A = A.clone()
-    rp = A[..., ps, :]
-    rq = A[..., qs, :]
-    A[..., ps, :] = cc * rp + ss * rq
-    A[..., qs, :] = -ss * rp + cc * rq
-    cp = A[..., :, ps].transpose(-1, -2)
-    cq = A[..., :, qs].transpose(-1, -2)
-    A[..., :, ps] = (cc * cp + ss * cq).transpose(-1, -2)
-    A[..., :, qs] = (-ss * cp + cc * cq).transpose(-1, -2)
+    # per index of the matrix: its pair's c, and s signed for a p or a q
+    # (x -s is exact, so q' = -s X_p + c X_q as the reference rounds it)
+    ci = c.index_select(-1, pair_of)
+    si = s.index_select(-1, pair_of) * sign
+    # the rows, then the columns of the rotated rows, every write out of
+    # place: no tensor of the caller's is modified and none is cloned (a
+    # clone is a device-to-device memcpy, a copy node in a CUDA graph)
+    A = _rotate(A, ci[..., :, None], si[..., :, None], partner, paired, -2)
+    A = _rotate(A, ci[..., None, :], si[..., None, :], partner, paired, -1)
     # zero the rotated pairs by a constant mask: assigning a host scalar
     # through advanced indexing would copy it to the device (a sync)
     A = torch.where(pair_mask, 0.0, A)
-
-    V = V.clone()
-    vp = V[..., :, ps].transpose(-1, -2)
-    vq = V[..., :, qs].transpose(-1, -2)
-    V[..., :, ps] = (cc * vp + ss * vq).transpose(-1, -2)
-    V[..., :, qs] = (-ss * vp + cc * vq).transpose(-1, -2)
+    V = _rotate(V, ci[..., None, :], si[..., None, :], partner, paired, -1)
     return A, V
 
 
@@ -96,8 +110,8 @@ def jacobi_eigh(A, sweeps: int = 8):
     V = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
     rounds = _rounds(n, A.device)
     for _ in range(sweeps):
-        for ps, qs, pair_mask in rounds:
-            A, V = _round_step(A, V, ps, qs, pair_mask)
+        for r in rounds:
+            A, V = _round_step(A, V, *r)
     evals = torch.diagonal(A, dim1=-2, dim2=-1)
     order = torch.argsort(evals, dim=-1, stable=True)
     evals_sorted = torch.take_along_dim(evals, order, dim=-1)

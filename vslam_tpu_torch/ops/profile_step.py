@@ -53,7 +53,8 @@ from ..config import VSLAMConfig
 from ..datasets import synthetic
 from ..mapping import point_map
 from ..pipeline import scan_driver, tracker
-from ..utils.profiling import TRACE_SUFFIX, capture, device_trace, nvidia_smi
+from ..utils.profiling import (TRACE_SUFFIX, capture, device_trace,
+                               nvidia_smi, use_graph_stream)
 from . import bench_stages
 
 # torch.profiler's Chrome-trace categories of device work
@@ -185,6 +186,7 @@ def profile(device, n_frames: int = 6, trace_dir: str = "out/profile_step"):
     same under the trace), ``window_ms`` (CUDA events around the traced
     loop), ``kernel_ms`` and ``n_frames``. Raises when the trace of the
     replays holds no kernel event."""
+    use_graph_stream(device)
     cfg, state, frames = workload(device, n_frames)
     graph = scan_driver.step_graph(cfg, span=True)
     # warm-up and capture

@@ -46,6 +46,7 @@ from ..config import VSLAMConfig
 from ..mapping import point_map
 from ..ops import associate as k2
 from ..ops import hamming as k1
+from ..utils.profiling import graph_nodes, use_graph_stream
 from . import keyframes as kf_mod
 from . import tracker
 
@@ -133,15 +134,26 @@ def _select(cond, a, b):
 
 
 def _copy_into(dst, src):
-    """Copy every tensor of ``src`` into the same field of ``dst`` (nothing
-    when ``dst`` is None)."""
-    if dst is None:
-        return
-    for k, v in _fields(dst):
-        if dataclasses.is_dataclass(v):
-            _copy_into(v, getattr(src, k))
-        elif isinstance(v, torch.Tensor):
-            v.copy_(getattr(src, k))
+    """Copy every tensor of ``src`` into the same field of ``dst``, one
+    ``torch._foreach_copy_`` a dtype (nothing when ``dst`` is None). A
+    same-dtype ``copy_`` on a card is one ``cudaMemcpyAsync`` a tensor,
+    which a capture records as one memcpy node a tensor; the foreach copy
+    is one kernel a dtype, so the graph's write-back of the state takes
+    one node a dtype. Bit for bit the same copy."""
+    groups = {}
+
+    def collect(d, s):
+        for k, v in _fields(d):
+            if dataclasses.is_dataclass(v):
+                collect(v, getattr(s, k))
+            elif isinstance(v, torch.Tensor):
+                ds, ss = groups.setdefault(v.dtype, ([], []))
+                ds.append(v)
+                ss.append(getattr(s, k))
+    if dst is not None:
+        collect(dst, src)
+    for ds, ss in groups.values():
+        torch._foreach_copy_(ds, ss)
 
 
 def frame_body(st: tracker.TrackerState, sr: kf_mod.KeyframeStore, x,
@@ -192,18 +204,32 @@ def step_body(st: tracker.TrackerState, sr, x, cfg: VSLAMConfig):
 class ChunkGraph:
     """``body`` captured once as a CUDA graph, replayed per frame.
 
-    The first ``run`` warms the body up eagerly on a side stream (constant
-    uploads, the kernels' build and K2's grid query, library handles: host
-    work that is illegal inside a capture) with a throwaway copy of the
-    RANSAC generator, then captures it on static buffers. Inside the
-    capture the new state is written back into the static buffers with
-    ``copy_``, and the RANSAC generator is registered with the graph, so
-    each replay draws what the eager step would draw next.
+    The first ``run`` warms the body up eagerly (constant uploads, the
+    kernels' build and K2's grid query, library handles: host work that is
+    illegal inside a capture) with a throwaway copy of the RANSAC
+    generator, then captures it on static buffers. Inside the capture the new state is written back into the static buffers by
+    ``_copy_into``, and the RANSAC generator is registered with the
+    graph, so each replay draws what the eager step would draw next.
 
     ``body(state, store, x) -> (state, store, row)`` is ``frame_body`` or
     ``step_body`` with its settings bound (``frame_graph``,
     ``step_graph``); one that carries no keyframe store is run with
     ``store=None``.
+
+    ``run`` makes the card's ``utils.profiling.graph_stream`` the calling
+    thread's current stream (``use_graph_stream``: ordered after the work
+    queued on the stream it replaces) and leaves it current, so the
+    warm-up, the capture, the replays and the caller's own work before and
+    after them share one stream, whatever stream the caller started on: on
+    the H100 a graph whose work changed streams ran ~23% slower (PERF.md
+    §6). The switch itself, right before the first replays, could start
+    that mode, so a program that drives this module directly calls
+    ``use_graph_stream`` before its first work on the card, as
+    ``SLAMSystem`` does.
+
+    ``nodes`` holds the graph's nodes by type (``utils.profiling.
+    graph_nodes``; the graph keeps its ``cudaGraph_t`` for that): how
+    long a replay takes moves with their number (PERF.md §6).
 
     Python launch counters count the capture, not the replays:
     ``captured_launches`` holds each kernel's launches in one frame body
@@ -223,6 +249,7 @@ class ChunkGraph:
         self.span = span
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.captured_launches: dict = {}
+        self.nodes: dict = {}
         self.replays = 0
         self.capture_s: Optional[float] = None
         self.pool_peak_bytes: Optional[int] = None
@@ -239,18 +266,14 @@ class ChunkGraph:
             scratch = torch.Generator(device=dev)
             scratch.set_state(state.key.get_state())
             warm = state.replace(key=scratch)
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.body(warm, store, x)
-        torch.cuda.current_stream(dev).wait_stream(side)
+        self.body(warm, store, x)
         torch.cuda.synchronize(dev)
 
         self.gen = torch.Generator(device=dev) if stream else None
         self.state = _map(torch.clone, state)
         self.store = _map(torch.clone, store)
         self.slot = torch.empty_like(x)
-        graph = torch.cuda.CUDAGraph()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         if stream:
             self.state = self.state.replace(key=self.gen)
             graph.register_generator_state(self.gen)
@@ -260,7 +283,7 @@ class ChunkGraph:
         if self.span:
             self.events = [torch.cuda.Event(enable_timing=True,
                                             external=True) for _ in range(2)]
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, stream=torch.cuda.current_stream(dev)):
             if self.span:
                 self.events[0].record()
             st, sr, row = self.body(self.state, self.store, self.slot)
@@ -269,6 +292,8 @@ class ChunkGraph:
             if self.span:
                 self.events[1].record()
         torch.cuda.synchronize(dev)
+        self.nodes = graph_nodes(graph)
+        graph.instantiate()
         self.row = row
         self.pool_peak_bytes = torch.cuda.max_memory_allocated(dev) - base
         self.captured_launches = {"hamming": k1.launches - before[0],
@@ -289,6 +314,7 @@ class ChunkGraph:
         raises."""
         dev = frames.device
         with torch.cuda.device(dev):
+            use_graph_stream(dev)
             if self.graph is None:
                 self._capture(state, store, frames[0])
             elif frames.shape[1:] != self.slot.shape:

@@ -36,6 +36,7 @@ from ..optimizer import ba
 from ..parallel import sharded_map
 from ..parallel.mesh import axis_size
 from ..utils.metrics import MetricsLogger
+from ..utils.profiling import use_graph_stream
 from . import keyframes, scan_driver, tracker
 
 # TrackOutput scalars fetched with the pose in one transfer per frame
@@ -100,6 +101,9 @@ class SLAMSystem:
                                  f"{n}, block {cfg.map.block_size}")
         self.cfg = cfg
         self.device = torch.device(device)
+        # all of this system's work on a card on one stream, from its
+        # first (``scan_driver.ChunkGraph``)
+        use_graph_stream(self.device)
         self.metrics = MetricsLogger(metrics_path)
         self.enable_ba = enable_ba
         self._seed = seed

@@ -414,9 +414,8 @@ def _step_impl(state: TrackerState, img, cfg: VSLAMConfig, ops: MapOps,
     # magnitude stays with the scale estimate (raw PnP when relocalizing)
     dT = lie.inv_T(state.pose) @ T_pnp
     t_mag = torch.linalg.vector_norm(dT[:3, 3])
-    dT_scaled = dT.clone()
-    dT_scaled[:3, 3] = dT[:3, 3] * torch.where(
-        t_mag > 1e-6, scale / torch.clamp(t_mag, min=1e-6), 1.0)
+    dT_scaled = lie.with_translation(dT, dT[:3, 3] * torch.where(
+        t_mag > 1e-6, scale / torch.clamp(t_mag, min=1e-6), 1.0))
     alpha = cfg.pipeline.pnp_blend
     if alpha < 1.0:
         xi_corr = lie.se3_log(lie.inv_T(new_pose) @ (state.pose @ dT_scaled))
@@ -528,8 +527,7 @@ def _step_impl(state: TrackerState, img, cfg: VSLAMConfig, ops: MapOps,
         dw = lie.so3_log(R_pred.T @ new_pose[:3, :3])
         R_blend = R_pred @ lie.so3_exp((1.0 - beta) * dw)
         use_blend = pose_ok & torch.isfinite(R_blend).all()
-        blended = new_pose.clone()
-        blended[:3, :3] = R_blend
+        blended = lie.with_rotation(new_pose, R_blend)
         new_pose = torch.where(use_blend, blended, new_pose)
 
     new_pose = lie.orthonormalize_T(new_pose)

@@ -31,19 +31,22 @@ rendered on the host.
     runs of ``n_timed`` frames, the two lengths taken in turn, each on a
     perturbed RANSAC stream, timed on the host clock through the fetch of
     the per-frame rows; frames/s = ``(n/2) / (t_full - t_half)``. Taken in
-    turn, a change in the step's speed partway through a segment (the
-    graph replay's device time can drop within one process, PERF.md §7)
-    reaches both lengths' minima rather than only the later length's. The warm-up runs first on another
-    sequence and pays for the capture, which never enters a timed window.
-    On a card each run is also timed by CUDA events, which gives the
-    replays' device ms per frame by the same differencing.
+    turn, a change in the step's speed partway through a segment would
+    reach both lengths' minima rather than only the later length's. The
+    warm-up runs first on another sequence and pays for the capture,
+    which never enters a timed window. On a card each run is also timed
+    by CUDA events, which gives the replays' device ms per frame by the
+    same differencing, and each run's own device ms per frame.
 
 Per segment, stderr gets bench.py's line (``segment_line``), the device
-ms, and nvidia-smi's clocks, temperature and clock-event reasons read
-before and after it. stdout gets one JSON line with bench.py's keys plus
-``device`` (``utils.profiling.device_record``), after ``check`` holds the
-run to bench.py's asserts. Exits 2 when ``--device`` names a CUDA device
-that is not available, 1 when ``check`` fails.
+ms (differenced, and each run's in the order run: the same graph runs in
+one of two modes, PERF.md §6, and a switch shows there), the graph's
+nodes by type, and nvidia-smi's clocks, temperature and clock-event
+reasons read before and after it. stdout gets one JSON line with
+bench.py's keys plus ``device`` (``utils.profiling.device_record``),
+after ``check`` holds the run to bench.py's asserts. Exits 2 when
+``--device`` names a CUDA device that is not available, 1 when ``check``
+fails.
 """
 from __future__ import annotations
 
@@ -61,7 +64,8 @@ from ..datasets import synthetic
 from ..mapping import point_map
 from ..pipeline import scan_driver, tracker
 from ..utils import threefry
-from ..utils.profiling import clocks, device_record, synchronize
+from ..utils.profiling import (clocks, device_record, synchronize,
+                               use_graph_stream)
 from . import device_arg
 
 # bench.py's workload
@@ -137,10 +141,12 @@ def perturbed(state: tracker.TrackerState, rep: int):
 def timed(state: tracker.TrackerState, frames, cfg: VSLAMConfig,
           graph: Optional[scan_driver.ChunkGraph], n_timed: int) -> dict:
     """bench.py's ``timed``: min of 3 runs over ``n_timed // 2`` frames
-    and over ``n_timed`` frames, the lengths in turn, differenced. Returns fps, the raw times
-    (s), the last full run's rows (host ``ChunkScalars``) and, on a card,
-    ``replay_ms``: device ms per frame from CUDA events, differenced the
-    same way."""
+    and over ``n_timed`` frames, the lengths in turn, differenced. Returns
+    fps, the raw times (s), the last full run's rows (host
+    ``ChunkScalars``) and, on a card, ``replay_ms``: device ms per frame
+    from CUDA events, differenced the same way, and ``run_ms``: each run's
+    own device ms per frame, in the order run (a change of the step's
+    speed between runs shows there)."""
     dev = state.pose.device
     cuda = dev.type == "cuda"
     half = n_timed // 2
@@ -170,10 +176,11 @@ def timed(state: tracker.TrackerState, frames, cfg: VSLAMConfig,
                               t_full, t_half))
     out = dict(fps=half / (t_full - t_half), t_half=t_half, t_full=t_full,
                rows=scan_driver.ChunkScalars.unpack(fulls[-1][2].numpy()),
-               replay_ms=None)
+               replay_ms=None, run_ms=None)
     if cuda:
         out["replay_ms"] = (min(f[1] for f in fulls)
                             - min(h[1] for h in halves)) / half
+        out["run_ms"] = [r[1] / n for r, n in zip(runs, [half, n_timed] * 3)]
     return out
 
 
@@ -188,34 +195,69 @@ def _clock_text(c: dict) -> str:
     return ", ".join(f"{k} {v}" for k, v in c.items())
 
 
+def sequence(device, cfg: VSLAMConfig, seed: int, traj_seed: int,
+             n_frames: int, rng: str = "torch"):
+    """bench.py's scene of ``seed`` seen along the trajectory of
+    ``traj_seed``: (the bootstrapped state of its first frame, the other
+    ``n_frames - 1`` frames as a (T, H, W) tensor on ``device``)."""
+    scene = synthetic.make_scene(seed=seed, **SCENE)
+    fr = synthetic.render_sequence(
+        cfg.camera.K(), synthetic.make_trajectory(n_frames, step=STEP,
+                                                  seed=traj_seed),
+        scene, cfg.camera.width, cfg.camera.height)
+    return (tracker.bootstrap(fr[0], cfg, device, rng=rng),
+            torch.from_numpy(fr[1:]).to(device))
+
+
+def capture_modes(device, captures: int, seed: int = 17,
+                  n_map: int = FILLS["map51k"], replays: int = 24,
+                  cfg: Optional[VSLAMConfig] = None) -> list:
+    """Read the mode of ``captures`` fresh captures of the carried step
+    (``scan_driver.step_graph(span=True)``) on a card: bench's scene of
+    ``seed``, a live map of ``n_map`` points, ``replays`` frames replayed
+    one by one from the same state and RANSAC draws for each capture.
+    Returns one dict per capture: ``nodes`` (the graph's nodes by type),
+    ``capture_s``, ``span_ms`` (each replay's device ms, CUDA events inside
+    the graph) and their ``median_ms``."""
+    use_graph_stream(device)
+    cfg = cfg or VSLAMConfig()
+    state, frames = sequence(device, cfg, seed, seed, replays + 1)
+    state = prepopulate(state, n_map, seed)
+    draws = state.key.get_state()
+    out = []
+    for _ in range(captures):
+        g = scan_driver.step_graph(cfg, span=True)
+        spans = []
+        state.key.set_state(draws)
+        s = state
+        for t in range(replays):
+            s, rows = scan_driver.carried(s, frames[t:t + 1], cfg, g)
+            rows.cpu()
+            spans.append(g.span_ms())
+        out.append(dict(nodes=g.nodes, capture_s=g.capture_s,
+                        span_ms=spans, median_ms=float(np.median(spans))))
+        del g
+    return out
+
+
 def run(device, seed: int, rng: str = "torch", n_timed: int = 40,
         cfg: Optional[VSLAMConfig] = None, fills=None, log=None):
     """bench.py's three segments on ``device``. Returns (report, segments,
     graph): the JSON line's dict, {label: segment} with each segment's
-    fps, success count, frames, median inliers, final map size, raw times
-    and device ms, and the ``scan_driver.step_graph`` (None on the CPU).
+    fps, success count, frames, median inliers, final map size, raw times,
+    device ms (differenced, and each run's), the graph's nodes by type and
+    the clocks, and the ``scan_driver.step_graph`` (None on the CPU).
     ``cfg`` and ``fills`` ({label: distractors}, ``FILLS``'s labels)
     shrink the run for tests; the per-segment lines go to ``log`` (stderr
     when None)."""
     log = log or sys.stderr
     device = torch.device(device)
+    use_graph_stream(device)
     cfg = cfg or VSLAMConfig()
     fills = FILLS if fills is None else fills
-    K = cfg.camera.K()
-    W, H = cfg.camera.width, cfg.camera.height
-    n_frames = n_timed + 2
-    scene = synthetic.make_scene(seed=seed, **SCENE)
-
-    def sequence(s):
-        fr = synthetic.render_sequence(
-            K, synthetic.make_trajectory(n_frames, step=STEP, seed=s),
-            scene, W, H)
-        return (tracker.bootstrap(fr[0], cfg, device, rng=rng),
-                torch.from_numpy(fr[1:]).to(device))
-
-    state0, frames = sequence(seed)
+    state0, frames = sequence(device, cfg, seed, seed, n_timed + 2, rng)
     # the warm-up (and the capture) on a different sequence
-    st_w, warm = sequence(seed + 1)
+    st_w, warm = sequence(device, cfg, seed, seed + 1, n_timed + 2, rng)
     graph = scan_driver.step_graph(cfg) if device.type == "cuda" else None
     for n in (n_timed // 2, n_timed):
         scan_driver.carried(st_w, warm[:n], cfg, graph)[1].cpu()
@@ -234,13 +276,17 @@ def run(device, seed: int, rng: str = "torch", n_timed: int = 40,
                    median_inliers=int(np.median(rows.num_inliers)),
                    final_map=int(rows.map_size[-1]), t_half=r["t_half"],
                    t_full=r["t_full"], replay_ms=r["replay_ms"],
-                   clocks_before=c0, clocks_after=c1)
+                   run_ms=r["run_ms"], clocks_before=c0, clocks_after=c1,
+                   nodes=graph.nodes if graph is not None else None)
         segments[label] = seg
         print(segment_line(label, seg), file=log)
         if seg["replay_ms"] is not None:
             print(f"{label}: replay {seg['replay_ms']:.4f} device ms/frame "
                   f"(CUDA events, differenced), host "
-                  f"{1e3 / seg['fps']:.4f} ms/frame", file=log)
+                  f"{1e3 / seg['fps']:.4f} ms/frame; each run's device "
+                  f"ms/frame (half, full, ...): "
+                  + ", ".join(f"{m:.4f}" for m in seg["run_ms"]), file=log)
+            print(f"{label}: graph nodes {seg['nodes']}", file=log)
         if c0:
             print(f"{label}: clocks before: {_clock_text(c0)}; after: "
                   f"{_clock_text(c1)}", file=log)

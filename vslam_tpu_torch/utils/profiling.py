@@ -9,22 +9,26 @@ can be read without a trace viewer (``print_trace_summary`` prints them).
 stage times, fenced by ``torch.cuda.synchronize``. ``event_ms`` and
 ``graph_ms`` give device times from CUDA events, for ``ops.bench_kernels``,
 ``ops.bench_stages`` and ``chip_smoke.py``'s graph timing (``capture``
-makes the graph); they need a card. ``device_record`` names what a result
-ran on, with nvidia-smi's name and power limit; ``clocks`` reads the SM
-clock, temperature and clock-event reasons.
+makes the graph on ``graph_stream``, ``use_graph_stream`` keeps a
+thread's work there); they need a card, as does ``graph_nodes``, a
+captured graph's nodes by type from the CUDA driver. ``device_record``
+names what a result ran on, with nvidia-smi's name and power limit;
+``clocks`` reads the SM clock, temperature and clock-event reasons.
 ``chip_smoke.py`` keeps its own single-call timers (``_time_each_ms``,
 ``_time_ms``) because ``scripts/time_kernels.py --root`` loads them from
 older checkouts, which have no ``utils/profiling.py``.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 import glob
 import json
 import os
 import subprocess
 import time
 from contextlib import contextmanager
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.utils._pytree import tree_leaves
@@ -125,22 +129,100 @@ def graph_ms(fn, reps: int = 10, generators=()) -> float:
     return sum(graph_times_ms(fn, reps, generators)) / reps
 
 
+@functools.lru_cache(maxsize=None)
+def _graph_stream(index: int) -> "torch.cuda.Stream":
+    return torch.cuda.Stream(index)
+
+
+def graph_stream(device=None) -> "torch.cuda.Stream":
+    """The one stream of a card on which the package captures and replays
+    its CUDA graphs (``scan_driver.ChunkGraph``, ``capture``), made at its
+    first use."""
+    return _graph_stream(torch.cuda._get_device_index(device, optional=True))
+
+
+def use_graph_stream(device=None) -> Optional["torch.cuda.Stream"]:
+    """Make ``graph_stream(device)`` the calling thread's current stream
+    on that card, ordered after the work already queued on the stream it
+    replaces, and leave it current; return it (None, and nothing done,
+    for a device that is not a card). A graph's warm-up, capture and
+    replays then share one stream with the caller's own work before and
+    after them. On the H100 a graph whose work changed streams ran in a
+    mode ~23% slower: a warm-up and capture on side streams with replays
+    on the default stream; replays on their own stream while the
+    caller's work stayed on the default one; and, at random, the first
+    graph replayed right after this switch itself. So the package's entry
+    points on a card (``SLAMSystem``, ``tools.bench``,
+    ``ops.profile_step``) call it before their first work there, and
+    ``ChunkGraph.run`` and ``capture`` call it again (PERF.md §6)."""
+    if device is not None and torch.device(device).type != "cuda":
+        return None
+    s = graph_stream(device)
+    cur = torch.cuda.current_stream(device)
+    if cur != s:
+        s.wait_stream(cur)
+        torch.cuda.set_stream(s)
+    return s
+
+
 def capture(fn, generators=()) -> "torch.cuda.CUDAGraph":
-    """``fn`` captured once as a CUDA graph. ``fn`` runs once eagerly on a
-    side stream first (allocations and first-use work that a capture
-    forbids); ``generators`` are registered with the graph."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
+    """``fn`` captured once as a CUDA graph on ``use_graph_stream()``,
+    which stays the current stream, so the graph's replays go there too.
+    ``fn`` runs once eagerly first (allocations and first-use work that a
+    capture forbids); ``generators`` are registered with the graph."""
+    s = use_graph_stream()
+    fn()
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
     for gen in generators:
         g.register_generator_state(gen)
-    with torch.cuda.graph(g):
+    with torch.cuda.graph(g, stream=s):
         fn()
     return g
+
+
+# cudaGraphNodeType / CUgraphNodeType, by value
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+              "wait_event", "event_record", "ext_semas_signal",
+              "ext_semas_wait", "mem_alloc", "mem_free", "batch_mem_op",
+              "conditional")
+
+
+@functools.lru_cache(maxsize=None)
+def _libcuda():
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_void_p),
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    return cu
+
+
+def graph_nodes(graph: "torch.cuda.CUDAGraph") -> Dict[str, int]:
+    """{node type: count} of a graph captured with ``keep_graph=True``
+    ("kernel", "memcpy", "memset", "event_record", ...), read from the CUDA
+    driver (``cuGraphGetNodes``, ``cuGraphNodeGetType``) on its
+    ``cudaGraph_t``."""
+    cu = _libcuda()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    err = cu.cuGraphGetNodes(raw, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    if not err:
+        err = cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
+    out: Dict[str, int] = {}
+    kind = ctypes.c_int(0)
+    for node in nodes:
+        err = cu.cuGraphNodeGetType(node, ctypes.byref(kind))
+        if err:
+            raise RuntimeError(f"cuGraphNodeGetType failed: CUresult {err}")
+        name = NODE_TYPES[kind.value] if kind.value < len(NODE_TYPES) \
+            else str(kind.value)
+        out[name] = out.get(name, 0) + 1
+    return out
 
 
 def graph_times_ms(fn, reps: int = 10, generators=()) -> List[float]:
