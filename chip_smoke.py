@@ -31,15 +31,26 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
      4's map, CUDA against the CPU, exact;
   8. the main path: ``SLAMSystem.process`` of the default config over 31
      frames (6 keyframes, the window-BA attempt at keyframe 5), then
-     ``run_global_ba``. Counters reset just before, read just after; at
-     most 2 host syncs per ordinary frame, >= 80% of frames tracked,
-     ATE < 0.5, global BA lowers its cost with nothing truncated, and the
-     whole state stays float32 on the card. Prints ms/frame by frame kind
-     and the BA event's outcome;
+     ``run_global_ba``. ``process`` replays the system's step graph,
+     captured at the bootstrap frame, and window BA the system's captured
+     ``solve_robust`` (captured in the warm-up). Counters reset just
+     before, read just after: K1 and K2 captured once each, the step graph
+     replayed once per tracked frame, launches read as captured times
+     replays; at most 2 host syncs per ordinary frame (it passes when run
+     first in its process), >= 80% of frames tracked, ATE < 0.5, global BA
+     lowers its cost with nothing truncated, and the whole state stays
+     float32 on the card. Prints the captures' seconds, ms/frame by frame
+     kind beside the eager driver's from PERF.md, and the BA event's
+     outcome;
   9. the full-width window BA problem (20 cameras x 8192 points x 16
      observation slots) solved on CUDA and on the CPU: costs within 1e-4
-     (initial) and 1e-3 (final) relative, equal accept flags. Prints ms per
-     solve and per LM iteration, window and global (CUDA events);
+     (initial) and 1e-3 (final) relative, equal accept flags; the system's
+     captured ``solve_robust`` bit-equal to the eager one where two eager
+     solves are bit-equal (else within those bounds). Prints ms per solve
+     and per LM iteration, window and global, and the captured window
+     ``solve_robust`` beside the eager one (CUDA events), and a window-BA
+     event's parts (build, gate statistics, solve, guards, the whole
+     ``_run_window_ba``) on the host clock;
  10. the bounded-map scenario of tests/test_map_lifecycle.py on CUDA
      (capacity 512, 24 frames): maintenance runs, no insert drops;
  11. the chunked driver at full width: ``SLAMSystem.process_chunk`` over
@@ -135,10 +146,11 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
 
 Each phase prints its seconds. The line before the last but one is one
 JSON object per kernel (route, source, the TPU kernel it replaces, launches
-on the main path of phase 8, on the tracking step of phase 6, in phase
-11's chunks (captured launches times replays), in phase 13's two runs,
-on phase 14a's sharded path, in phase 15a's endurance run and in phase
-17a's bench (each captured launches times replays), max |error|
+on the main path of phase 8 (captured launches times replays), on the
+tracking step of phase 6, in phase 11's chunks, in phase 13's two runs
+(each captured launches times replays), on phase 14a's sharded path
+(eager), in phase 15a's endurance run and in phase 17a's bench (each
+captured launches times replays), max |error|
 vs the plain version, kernel, plain and library times, and the bound with
 what bounds it); then the nvidia-smi line; the
 last line is ``{"ok": true, "device": {...}}``. No GPU: exits 2 and prints
@@ -727,8 +739,14 @@ def _process_run(torch, s, frames, gt, label, failures):
     ``set_sync_debug_mode("warn")`` and its host syncs are counted; the
     host clock per frame is taken between two ``synchronize()``. Holds the
     run to >= 80% tracked, ATE < 0.5, <= 2 syncs per ordinary frame, a
-    window-BA attempt and one launch of each kernel per tracked frame.
-    Returns (run record, launches, ms/frame by frame kind)."""
+    window-BA attempt and one launch of each kernel per tracked frame. A
+    system with a step graph (one card, no mesh) captures it at the
+    bootstrap frame and replays it once per tracked frame: the wrappers'
+    counters then count the warm-up and the capture, so its launches are
+    read as phase 11 reads them, captured launches times replays, and the
+    run fails unless the graph replayed once per tracked frame with K1 and
+    K2 captured once each. Returns (run record, launches, ms/frame by frame
+    kind)."""
     from vslam_tpu_torch.ops import associate as k2
     from vslam_tpu_torch.ops import hamming
     from vslam_tpu_torch.utils import evaluate
@@ -753,6 +771,21 @@ def _process_run(torch, s, frames, gt, label, failures):
             syncs.append(len(mine))
             sites.append(mine)
     launches = {"hamming": hamming.launches, "associate": k2.launches}
+    g = s.step_graph
+    if g is not None:
+        counted = launches
+        launches = {k: v * g.replays for k, v in g.captured_launches.items()}
+        print(f"{label}: step graph captured at the bootstrap frame in "
+              f"{infos[0]['capture_s']:.2f} s (eager warm-up + capture), "
+              f"kernels captured {g.captured_launches}, replays "
+              f"{g.replays}, launches {launches} (wrapper counters "
+              f"{counted}: the warm-up and the capture)")
+        if g.captured_launches != {"hamming": 1, "associate": 1}:
+            failures.append(f"{label}: kernels captured "
+                            f"{g.captured_launches}, want one of each")
+        if g.replays != n_frames - 1:
+            failures.append(f"{label}: the step graph replayed {g.replays} "
+                            f"times in {n_frames - 1} tracked frames")
 
     kinds = ["bootstrap"] + ["ba" if x["ran_ba"] else
                              "keyframe" if x["keyframe"] else "ordinary"
@@ -809,11 +842,14 @@ def run_slam_path(torch, dev, failures):
     ``run_global_ba``. Launch counters reset just before, read just after.
     Each ``process`` runs under ``set_sync_debug_mode("warn")`` and its
     host syncs are counted; the host clock per frame is taken between two
-    ``synchronize()``."""
+    ``synchronize()``. ``process`` replays the system's step graph, which
+    it captures at the bootstrap frame, and window BA the system's graph
+    of ``solve_robust``, which the warm-up captures. The phase passes when
+    it runs first in its process (``python -c "import chip_smoke as c;
+    ...; c.run_slam_path(torch, dev, failures)"``)."""
     from vslam_tpu_torch.config import VSLAMConfig
     from vslam_tpu_torch.core.types import empty_map
-    from vslam_tpu_torch.optimizer import ba
-    from vslam_tpu_torch.pipeline import keyframes, tracker
+    from vslam_tpu_torch.pipeline import keyframes
     from vslam_tpu_torch.pipeline.slam import SLAMSystem
     from vslam_tpu_torch.utils import evaluate
 
@@ -823,18 +859,31 @@ def run_slam_path(torch, dev, failures):
     frames_np, gt = _render(cfg, n_frames, BENCH_SCENE, 1.0, 0)
     frames = torch.from_numpy(np.stack(frames_np)).to(dev)
     print(f"rendered {n_frames} frames in {time.perf_counter() - t0:.1f} s")
-    # warm-up: the solver's first-call costs (cuSOLVER, allocator) at the
-    # window's shapes, off the clock (phase 6 warmed the step)
+    s = SLAMSystem(cfg, dev)
+    # warm-up, off the clock: the system's graph of the window solve at
+    # the window's shapes (cuSOLVER's first-call costs, then the capture);
+    # a run's first window-BA event pays it, every later one replays
     wp0 = keyframes.build_window_problem(
         keyframes.empty_store(40, cfg.frontend.max_keypoints, dev),
         empty_map(cfg.map.capacity, cfg.map.obs_per_point, dev), cfg,
         free_tail=cfg.ba.free_cams, prov_min_obs=99)
-    ba.solve_robust(wp0.problem, tracker._K(cfg, dev), cfg.ba)
+    s._solve_robust(wp0.problem, cfg.ba, reject_px=5.0, rounds=2)
     torch.cuda.synchronize()
+    (bag,) = s.ba_graphs.values()
+    print(f"window-BA graph captured in {bag.capture_s:.2f} s (eager "
+          "warm-up + capture)")
 
-    s = SLAMSystem(cfg, dev)
     p8, launches, ms = _process_run(torch, s, frames, gt, "SLAM path",
                                     failures)
+    print("process before it replayed a captured step (eager, PERF.md §5, "
+          "NVIDIA H100 80GB HBM3, 700 W): ordinary 380.076, keyframe "
+          "395.382, BA 475.461 ms/frame; window-BA graph replays "
+          f"{bag.replays} (1 the warm-up's)")
+    n_solved = sum("skipped" not in e for e in p8["events"])
+    if bag.replays != 1 + n_solved or len(s.ba_graphs) != 1:
+        failures.append(f"SLAM path: {len(s.ba_graphs)} window-BA graphs, "
+                        f"{bag.replays} replays for {n_solved} solved "
+                        "events and the warm-up")
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -878,11 +927,55 @@ def _check_state_on_card(torch, s, label, failures):
         failures.append(f"{label}: float64 in the state: {wide}")
 
 
+def _same_solve(torch, a_p, a, b_p, b):
+    """Two ``solve_robust`` results bit-equal: the solved poses and
+    points, both masks and every ``BAStats`` field."""
+    return all(torch.equal(getattr(a_p, f), getattr(b_p, f))
+               for f in ("T_cw", "points", "obs_mask", "point_mask")) \
+        and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _window_event_split(torch, s):
+    """ms (host clock, through a synchronize) of a window-BA event's parts
+    on ``s``'s state, each the second of two runs: the problem's build,
+    the gate statistics' fetch, the captured solve, the float64 guards,
+    and the whole ``_run_window_ba`` (which may write its result into
+    ``s``)."""
+    from vslam_tpu_torch.pipeline import keyframes, slam
+
+    cfg = s.cfg
+
+    def host(fn):
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    wp, build = host(lambda: keyframes.build_window_problem(
+        s.kf_store, s.whole_map(), cfg, free_tail=cfg.ba.free_cams,
+        prov_min_obs=99))
+    _, gates = host(lambda: torch.stack(slam._window_gate_stats(
+        wp.problem, wp.sel_prov)).tolist())
+    (solved, _), solve = host(lambda: s._solve_robust(
+        wp.problem, cfg.ba, reject_px=5.0, rounds=2))
+    _, guards = host(lambda: s._ba_event_accepted(
+        wp, s._pin_window_gauge(wp, solved)[0]))
+    _, event = host(s._run_window_ba)
+    return dict(build=build, gates=gates, solve=solve, guards=guards,
+                event=event)
+
+
 def check_ba(torch, dev, s, failures):
     """Phase 9: the full-width window problem from phase 8's final store
     and map, built with ``_run_window_ba``'s call; ``solve_robust`` on
-    CUDA and on the CPU from the same inputs. Then ms per solve and per LM
-    iteration (CUDA events) for the window and the global problem."""
+    CUDA and on the CPU from the same inputs. Then the system's captured
+    solve (what window BA replays) against the eager one: bit-equal where
+    two eager solves are bit-equal to each other, else within the CPU
+    comparison's bounds. Then ms per solve and per LM iteration (CUDA
+    events) for the window and the global problem, the captured
+    ``solve_robust`` beside the eager one, and ``_window_event_split``."""
     import dataclasses
 
     from vslam_tpu_torch.optimizer import ba
@@ -919,13 +1012,40 @@ def check_ba(torch, dev, s, failures):
     if not gf < gi:
         failures.append(f"window BA did not reduce its cost: {gi} -> {gf}")
 
+    again_p, again = ba.solve_robust(p, Kd, cfg.ba, reject_px=5.0, rounds=2)
+    graph_p, graph = s._solve_robust(p, cfg.ba, reject_px=5.0, rounds=2)
+    eager_eq = _same_solve(torch, again_p, again, got_p, got)
+    graph_eq = _same_solve(torch, graph_p, graph, got_p, got)
+    hi, hf = float(graph.initial_cost), float(graph.final_cost)
+    print(f"window BA on CUDA: two eager solve_robust bit-equal {eager_eq}; "
+          f"the captured solve bit-equal to the eager one {graph_eq} (cost "
+          f"{hi:.4f} -> {hf:.4f}, accepted {graph.accepted.cpu().tolist()})")
+    if eager_eq and not graph_eq:
+        failures.append("window BA: the captured solve differs from the "
+                        "eager one, which repeats bit for bit")
+    if not eager_eq and not (
+            abs(hi - gi) <= 1e-4 * abs(gi) and abs(hf - gf) <= 1e-3 * abs(gf)
+            and torch.equal(graph.accepted, got.accepted)):
+        failures.append(f"window BA: captured solve {hi} -> {hf} vs eager "
+                        f"{gi} -> {gf}")
+
     it = cfg.ba.iterations
     ms_solve = _time_ms(torch, lambda: ba.solve(p, Kd, cfg.ba), reps=3)
     ms_robust = _time_ms(torch, lambda: ba.solve_robust(
         p, Kd, cfg.ba, reject_px=5.0, rounds=2), reps=3)
+    ms_graph = _time_ms(torch, lambda: s._solve_robust(
+        p, cfg.ba, reject_px=5.0, rounds=2), reps=3)
+    (bag,) = s.ba_graphs.values()
+    ms_replay = _time_ms(torch, bag.graph.replay, reps=10)
+    ms_build = _time_ms(torch, lambda: keyframes.build_window_problem(
+        s.kf_store, s.state.map, cfg, free_tail=cfg.ba.free_cams,
+        prov_min_obs=99), reps=3)
     print(f"window BA {C}x{P}x{K} on CUDA: {ms_solve:.2f} ms/solve "
           f"({ms_solve / it:.3f} ms/iteration, {it} iterations), "
-          f"solve_robust (2 rounds) {ms_robust:.2f} ms (CUDA events)")
+          f"solve_robust (2 rounds) eager {ms_robust:.2f} ms, captured "
+          f"{ms_graph:.2f} ms (copies in and out included; the replay "
+          f"alone {ms_replay:.3f} ms); the window problem's build (eager) "
+          f"{ms_build:.2f} ms (CUDA events)")
 
     cov = s.last_global_ba_coverage
     gcfg = dataclasses.replace(cfg.ba, huber_delta=1.5,
@@ -939,8 +1059,16 @@ def check_ba(torch, dev, s, failures):
     assembly = "onehot" if Cg <= gcfg.onehot_max_cams else "scatter"
     print(f"global BA {Cg}x{Pg}x{Kg} ({assembly} assembly) on CUDA: "
           f"{ms_g:.2f} ms/solve ({ms_g / it:.3f} ms/iteration) (CUDA events)")
+    split = _window_event_split(torch, s)
+    e = [r for r in s.metrics.records if r.get("kind") == "ba"][-1]
+    print("a window-BA event on phase 8's final state ("
+          + (f"skipped, {e['skipped']}" if "skipped" in e else "solved")
+          + "), ms host clock through a synchronize, each part's second "
+          "run: " + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
     return dict(window_ms_solve=ms_solve, window_ms_iter=ms_solve / it,
-                window_ms_robust=ms_robust, global_ms_solve=ms_g,
+                window_ms_robust=ms_robust, window_ms_robust_graph=ms_graph,
+                window_ms_replay=ms_replay, window_ms_build=ms_build,
+                window_event_ms=split["event"], global_ms_solve=ms_g,
                 global_ms_iter=ms_g / it), p
 
 

@@ -591,7 +591,7 @@ def test_bench_graph_matches_eager_step_on_cuda(cuda, rng):
 
     want, rows = start(), []
     for t in range(1, 5):
-        want, _, row = scan_driver.step_body(want, None, frames[t], CFG)
+        want, _, row, _ = scan_driver.step_body(want, None, frames[t], CFG)
         rows.append(row)
     g = scan_driver.step_graph(CFG)
     got, got_rows = scan_driver.carried(start(), frames[1:], CFG, g)

@@ -365,7 +365,8 @@ def _run_steps(frames, dev="cpu", rng="torch"):
     st = tracker.bootstrap(frames[0].to(dev), CFG, dev, rng=rng)
     rows = []
     for t in range(1, frames.shape[0]):
-        st, _, row = scan_driver.step_body(st, None, frames[t].to(dev), CFG)
+        st, _, row, _ = scan_driver.step_body(st, None, frames[t].to(dev),
+                                              CFG)
         rows.append(row)
     return st, torch.stack(rows)
 

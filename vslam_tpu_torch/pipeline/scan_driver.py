@@ -17,8 +17,9 @@ host-dependent control flow:
     only where the trigger fired.
 
 ``step_body`` is the step alone (no keyframe, no maintenance), the body
-of ``tools.bench``'s carried loop; ``carried`` runs it as ``run_chunk``
-runs ``frame_body``.
+of ``tools.bench``'s carried loop and of ``SLAMSystem.process``;
+``carried`` runs it over a chunk as ``run_chunk`` runs ``frame_body``,
+``track_frame`` over one frame.
 
 On a CPU device ``run_chunk`` is a Python loop over ``frame_body``. On a
 CUDA device it is ``ChunkGraph``: the body captured once as a CUDA graph on
@@ -30,7 +31,9 @@ fallback on the card: a capture or replay that fails raises.
 
 Per frame only scalars leave the body: ``pack`` lays them out as one
 float64 row (float64 holds every f32 and every count exactly), and the
-caller fetches all rows of a chunk in one transfer.
+caller fetches all rows of a chunk in one transfer. The body's
+``TrackOutput`` (the match and keypoint arrays ``cli run --save-frames``
+draws) is kept for the chunk's last frame.
 """
 from __future__ import annotations
 
@@ -112,6 +115,18 @@ def _fields(obj):
     return [(f.name, getattr(obj, f.name)) for f in dataclasses.fields(obj)]
 
 
+def _tensors(obj):
+    """Every tensor of a dataclass of tensors, nested ones included (none
+    for None)."""
+    if obj is None:
+        return
+    for _, v in _fields(obj):
+        if dataclasses.is_dataclass(v):
+            yield from _tensors(v)
+        elif isinstance(v, torch.Tensor):
+            yield v
+
+
 def _map(fn, obj):
     """``fn`` on every tensor of a dataclass of tensors (nested dataclasses
     recursed into; anything else, such as the generator, kept; None
@@ -160,8 +175,8 @@ def frame_body(st: tracker.TrackerState, sr: kf_mod.KeyframeStore, x,
                cfg: VSLAMConfig, high_water: int, min_free: int,
                render_fn=None):
     """One frame of a chunk. ``x`` is the (H, W) image, or the renderer's
-    input when ``render_fn`` is given. Returns (state, store, row), ``row``
-    the frame's ``pack``ed scalars."""
+    input when ``render_fn`` is given. Returns (state, store, row, out),
+    ``row`` the frame's ``pack``ed scalars, ``out`` its ``TrackOutput``."""
     img = render_fn(x) if render_fn is not None else x
     frame_no = st.frame_idx
     st2, out = tracker._step_impl(st, img, cfg, tracker.default_map_ops(
@@ -188,44 +203,48 @@ def frame_body(st: tracker.TrackerState, sr: kf_mod.KeyframeStore, x,
     sr3 = sr2.replace(
         obs_pid=torch.where(need, obs2, sr2.obs_pid),
         obs_mask=torch.where(need, sr2.obs_mask & (obs2 >= 0), sr2.obs_mask))
-    return st3, sr3, pack(out, do_insert, need)
+    return st3, sr3, pack(out, do_insert, need), out
 
 
-def step_body(st: tracker.TrackerState, sr, x, cfg: VSLAMConfig):
+def step_body(st: tracker.TrackerState, sr, x, cfg: VSLAMConfig, mesh=None,
+              map_axis: str = "map"):
     """One ``track_step`` alone, with no keyframe insert and no
-    maintenance (bench.py's scan body). ``sr`` passes through (None: no
-    keyframe store). Returns (state, sr, row), ``row`` in ``pack``'s
-    layout."""
-    st, out = tracker.track_step(st, x, cfg)
+    maintenance (bench.py's scan body; ``mesh`` / ``map_axis`` as
+    ``track_step`` takes them, for the sharded ``process``, which runs it
+    eagerly). ``sr`` passes through (None: no keyframe store). Returns
+    (state, sr, row, out), ``row`` in ``pack``'s layout, ``out`` the
+    step's ``TrackOutput``."""
+    st, out = tracker.track_step(st, x, cfg, mesh=mesh, map_axis=map_axis)
     no = torch.zeros_like(out.success)
-    return st, sr, pack(out, no, no)
+    return st, sr, pack(out, no, no), out
 
 
 class ChunkGraph:
     """``body`` captured once as a CUDA graph, replayed per frame.
 
-    The first ``run`` warms the body up eagerly (constant uploads, the
-    kernels' build and K2's grid query, library handles: host work that is
-    illegal inside a capture) with a throwaway copy of the RANSAC
-    generator, then captures it on static buffers. Inside the capture the new state is written back into the static buffers by
-    ``_copy_into``, and the RANSAC generator is registered with the
-    graph, so each replay draws what the eager step would draw next.
+    ``capture``, or else the first ``run``, warms the body up eagerly
+    (constant uploads, the kernels' build and K2's grid query, library
+    handles: host work that is illegal inside a capture) with a throwaway
+    copy of the RANSAC generator, then captures it on static buffers.
+    Inside the capture the new state is written back into the static
+    buffers by ``_copy_into``, and the RANSAC generator is registered with
+    the graph, so each replay draws what the eager step would draw next.
 
-    ``body(state, store, x) -> (state, store, row)`` is ``frame_body`` or
-    ``step_body`` with its settings bound (``frame_graph``,
+    ``body(state, store, x) -> (state, store, row, out)`` is ``frame_body``
+    or ``step_body`` with its settings bound (``frame_graph``,
     ``step_graph``); one that carries no keyframe store is run with
     ``store=None``.
 
-    ``run`` makes the card's ``utils.profiling.graph_stream`` the calling
-    thread's current stream (``use_graph_stream``: ordered after the work
-    queued on the stream it replaces) and leaves it current, so the
-    warm-up, the capture, the replays and the caller's own work before and
-    after them share one stream, whatever stream the caller started on: on
-    the H100 a graph whose work changed streams ran ~23% slower (PERF.md
-    §6). The switch itself, right before the first replays, could start
-    that mode, so a program that drives this module directly calls
-    ``use_graph_stream`` before its first work on the card, as
-    ``SLAMSystem`` does.
+    ``capture`` and ``run`` make the card's
+    ``utils.profiling.graph_stream`` the calling thread's current stream
+    (``use_graph_stream``: ordered after the work queued on the stream it
+    replaces) and leave it current, so the warm-up, the capture, the
+    replays and the caller's own work before and after them share one
+    stream, whatever stream the caller started on: on the H100 a graph
+    whose work changed streams ran ~23% slower (PERF.md §6). The switch
+    itself, right before the first replays, could start that mode, so a
+    program that drives this module directly calls ``use_graph_stream``
+    before its first work on the card, as ``SLAMSystem`` does.
 
     ``nodes`` holds the graph's nodes by type (``utils.profiling.
     graph_nodes``; the graph keeps its ``cudaGraph_t`` for that): how
@@ -286,7 +305,14 @@ class ChunkGraph:
         with torch.cuda.graph(graph, stream=torch.cuda.current_stream(dev)):
             if self.span:
                 self.events[0].record()
-            st, sr, row = self.body(self.state, self.store, self.slot)
+            st, sr, row, out = self.body(self.state, self.store, self.slot)
+            # an output that is an input buffer (the step's uv1 is the
+            # state's prev.uv) is copied before the write-back overwrites it
+            ins = {t.untyped_storage().data_ptr() for t in (
+                *_tensors(self.state), *_tensors(self.store), self.slot)}
+            out = tracker.TrackOutput(*(
+                t.clone() if t.untyped_storage().data_ptr() in ins else t
+                for t in out))
             _copy_into(self.state, st)
             _copy_into(self.store, sr)
             if self.span:
@@ -294,12 +320,20 @@ class ChunkGraph:
         torch.cuda.synchronize(dev)
         self.nodes = graph_nodes(graph)
         graph.instantiate()
-        self.row = row
+        self.row, self.out = row, out
         self.pool_peak_bytes = torch.cuda.max_memory_allocated(dev) - base
         self.captured_launches = {"hamming": k1.launches - before[0],
                                   "associate": k2.launches - before[1]}
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
+
+    def capture(self, state, store, x):
+        """Warm up and capture the body on ``state``, ``store`` and one
+        input ``x`` without replaying it (``run``'s first call does this
+        when nothing called it before)."""
+        with torch.cuda.device(x.device):
+            use_graph_stream(x.device)
+            self._capture(state, store, x)
 
     def span_ms(self) -> float:
         """Device ms of the latest replay (``span=True``; waits for it)."""
@@ -308,10 +342,11 @@ class ChunkGraph:
 
     def run(self, state, store, frames):
         """Track ``frames`` (T, ...) on the card. Returns (state, store,
-        rows): new state and store (copies, not the static buffers) and
-        the (T, ROW) float64 rows, still on the device. The replay loop
-        runs with ``set_sync_debug_mode("error")``: a host sync inside it
-        raises."""
+        rows, out): new state and store and the last frame's
+        ``TrackOutput`` (copies, not the static buffers, so no later replay
+        overwrites them) and the (T, ROW) float64 rows, still on the
+        device. The replay loop runs with ``set_sync_debug_mode("error")``:
+        a host sync inside it raises."""
         dev = frames.device
         with torch.cuda.device(dev):
             use_graph_stream(dev)
@@ -340,7 +375,8 @@ class ChunkGraph:
             if self.gen is not None:
                 state.key.set_state(self.gen.get_state())
             return (_map(torch.clone, self.state).replace(key=state.key),
-                    _map(torch.clone, self.store), rows)
+                    _map(torch.clone, self.store), rows,
+                    tracker.TrackOutput(*map(torch.clone, self.out)))
 
 
 def run_chunk(state: tracker.TrackerState, store: kf_mod.KeyframeStore,
@@ -363,7 +399,7 @@ def run_chunk(state: tracker.TrackerState, store: kf_mod.KeyframeStore,
     (``ChunkScalars.unpack`` of its host copy gives the named fields).
     """
     return _run(_frame_fn(cfg, high_water, min_free, render_fn), state,
-                store, frames, graph)
+                store, frames, graph)[:3]
 
 
 def carried(state: tracker.TrackerState, frames, cfg: VSLAMConfig,
@@ -372,9 +408,20 @@ def carried(state: tracker.TrackerState, frames, cfg: VSLAMConfig,
     loop: ``graph`` (``step_graph``; a new one when None) replayed on
     CUDA, a Python loop on the CPU. Returns (state, rows), ``rows`` (T,
     ROW) float64 on the device."""
-    state, _, rows = _run(functools.partial(step_body, cfg=cfg), state,
-                          None, frames, graph)
+    state, _, rows, _ = _run(functools.partial(step_body, cfg=cfg), state,
+                             None, frames, graph)
     return state, rows
+
+
+def track_frame(state: tracker.TrackerState, x, cfg: VSLAMConfig,
+                graph: Optional[ChunkGraph] = None):
+    """``step_body`` on one (H, W) image ``x``, as ``carried`` runs a
+    chunk: ``graph`` replayed on CUDA, eager on the CPU. Returns (state,
+    out, row): the step's ``TrackOutput`` (on a card a copy of the graph's
+    outputs) and its (ROW,) float64 row on the device."""
+    state, _, rows, out = _run(functools.partial(step_body, cfg=cfg), state,
+                               None, x[None], graph)
+    return state, out, rows[0]
 
 
 def frame_graph(cfg: VSLAMConfig, high_water: int, min_free: int,
@@ -395,7 +442,8 @@ def _frame_fn(cfg, high_water, min_free, render_fn):
 
 def _run(body, state, store, frames, graph):
     """``body`` over ``frames``: ``graph`` (``ChunkGraph(body)`` when None)
-    on CUDA, a Python loop on the CPU."""
+    on CUDA, a Python loop on the CPU. Returns (state, store, rows, the
+    last frame's out)."""
     dev = state.pose.device
     if dev.type == "cuda":
         return (graph or ChunkGraph(body)).run(state, store, frames)
@@ -403,6 +451,6 @@ def _run(body, state, store, frames, graph):
         raise ValueError(f"unsupported device {dev}")
     rows = []
     for t in range(frames.shape[0]):
-        state, store, row = body(state, store, frames[t])
+        state, store, row, out = body(state, store, frames[t])
         rows.append(row)
-    return state, store, torch.stack(rows)
+    return state, store, torch.stack(rows), out

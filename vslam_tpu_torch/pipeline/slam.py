@@ -5,11 +5,22 @@ images in and scalars out: each ordinary frame (neither a keyframe nor a
 BA frame) costs one device-to-host transfer, the packed pose and counters
 of the step; a BA attempt adds one more for its gate statistics before
 deciding whether to solve. ``process_chunk`` runs T frames through the
-chunked driver (``scan_driver``) with one transfer per chunk; on CUDA the
-frame body is a captured graph. The window-BA guards are host-side numpy on the
-solved window, as in the reference, and what they write back re-enters as
-float32 on the system's device. The reference's comments give the
-measurements behind every guard and constant; this file keeps the what.
+chunked driver (``scan_driver``) with one transfer per chunk. The window-BA
+guards are host-side numpy on the solved window, as in the reference, and
+what they write back re-enters as float32 on the system's device. The
+reference's comments give the measurements behind every guard and
+constant; this file keeps the what.
+
+On a card the system runs what ``jax.jit`` compiles in the reference as
+CUDA graphs: ``process`` replays one captured ``track_step``
+(``scan_driver.step_graph``, captured at the bootstrap frame) per frame,
+``process_chunk`` one captured frame body per frame, and window BA and
+structure refinement one captured ``solve_robust`` per event
+(``_solve_robust``). The host's decisions and writes (keyframes, BA's
+guards, maintenance) run eagerly between replays; the state is copied
+into the graph at every call. A capture or replay that fails raises:
+nothing falls back to the eager step. ``track_step`` with a mesh and
+global BA run eagerly, and the CPU runs everything eagerly.
 
 With a mesh (``parallel.mesh.make_mesh``) every rank runs this same loop
 and holds its block of the map (BASELINE config 4): each step goes through
@@ -36,15 +47,11 @@ from ..optimizer import ba
 from ..parallel import sharded_map
 from ..parallel.mesh import axis_size
 from ..utils.metrics import MetricsLogger
-from ..utils.profiling import use_graph_stream
+from ..utils.profiling import capture, use_graph_stream
 from . import keyframes, scan_driver, tracker
 
-# TrackOutput scalars fetched with the pose in one transfer per frame
-_SCALARS = ("num_matches", "num_inliers", "num_associated",
-            "num_tracked_map", "num_tracked_prov", "num_pnp_inliers",
-            "num_refined", "num_promoted", "num_new_points",
-            "num_dropped_inserts", "map_size", "map_alive", "scale",
-            "success")
+# the counters of a frame's info, in ChunkScalars' order
+_COUNTS = scan_driver.ChunkScalars._fields[1:13]
 
 
 def _np(x: torch.Tensor) -> np.ndarray:
@@ -76,6 +83,38 @@ def _window_gate_stats(problem: ba.BAProblem, sel_prov):
               & pm & ~sel_prov)
     solid_obs = (ofix & om & bridge[:, None]).sum()
     return n_obs_free, n_free, deep_obs, solid_obs
+
+
+class _SolveGraph:
+    """``ba.solve_robust`` with fixed settings, captured once as a CUDA
+    graph on static copies of its inputs (``utils.profiling.capture``: an
+    eager warm-up, then the capture, on the card's graph stream). A call
+    copies the problem in, replays, and returns copies of the outputs,
+    which the next replay does not overwrite. The LM loop reads nothing
+    back to the host (``optimizer/ba.py``), so the graph is the whole
+    solve. ``capture_s``: warm-up and capture, host clock."""
+
+    def __init__(self, problem: ba.BAProblem, K, cfg, reject_px: float,
+                 rounds: int):
+        t0 = time.perf_counter()
+        self.problem = scan_driver._map(torch.clone, problem)
+        self.K = K.clone()
+
+        def solve():
+            self.out = ba.solve_robust(self.problem, self.K, cfg,
+                                       reject_px=reject_px, rounds=rounds)
+        self.graph = capture(solve)
+        self.capture_s = time.perf_counter() - t0
+        self.replays = 0
+
+    def __call__(self, problem: ba.BAProblem, K):
+        scan_driver._copy_into(self.problem, problem)
+        self.K.copy_(K)
+        self.graph.replay()
+        self.replays += 1
+        solved, stats = self.out
+        return (scan_driver._map(torch.clone, solved),
+                ba.BAStats(*map(torch.clone, stats)))
 
 
 class SLAMSystem:
@@ -130,40 +169,58 @@ class SLAMSystem:
         self._maint_min_free = max(cap // 8, headroom + max(cap // 16, 1))
         self.dropped_inserts_total = 0
         self.maintenance_runs = 0
-        # process_chunk's captured frame bodies on CUDA, by render_fn
+        # on a card: process's captured step (not with a mesh: its
+        # collectives run eagerly), process_chunk's captured frame bodies
+        # by render_fn, the window solves' graphs by _solve_robust's key
+        self.step_graph = (scan_driver.step_graph(cfg)
+                           if self.device.type == "cuda" and mesh is None
+                           else None)
         self.chunk_graphs: Dict = {}
+        self.ba_graphs: Dict = {}
 
     # ------------------------------------------------------------------
     def process(self, img) -> Dict:
         """Feed one grayscale frame (H, W) float32 in [0, 1] (numpy or a
-        tensor; a tensor already on the system's device is not copied)."""
+        tensor; a tensor already on the system's device is not copied).
+
+        On a card the step is ``step_graph``'s replay: captured at the
+        bootstrap frame (or, for a system restored by
+        ``utils.checkpoint.load_state``, at its first tracked frame), whose
+        info then holds the warm-up and capture's seconds as
+        ``capture_s``."""
         t0 = time.perf_counter()
+        img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
+        g = self.step_graph
         if self.state is None:
             state = tracker.bootstrap(img, self.cfg, self.device,
                                       seed=self._seed, rng=self._rng)
             self.state = state.replace(map=self._local(state.map))
             self.trajectory.append(np.eye(4, dtype=np.float32))
-            info = {"kind": "frame", "frame": 0, "bootstrap": True,
-                    "wall_s": time.perf_counter() - t0}
+            info = {"kind": "frame", "frame": 0, "bootstrap": True}
+            if g is not None:
+                # the warm-up's first uploads and the capture's syncs fall
+                # in this frame, not in the first tracked one
+                g.capture(self.state, None, img)
+                info["capture_s"] = g.capture_s
+            info["wall_s"] = time.perf_counter() - t0
             self.metrics.log(**info)
             self.frame_idx = 1
             return info
 
-        self.state, out = tracker.track_step(self.state, img, self.cfg,
-                                             mesh=self.mesh,
-                                             map_axis=self._map_axis)
+        fresh = g is not None and g.graph is None
+        if self.mesh is None:
+            self.state, out, row = scan_driver.track_frame(
+                self.state, img, self.cfg, g)
+        else:
+            self.state, _, row, out = scan_driver.step_body(
+                self.state, None, img, self.cfg, mesh=self.mesh,
+                map_axis=self._map_axis)
         self.last_output = out
-        # one bulk device->host transfer for all scalars + the pose (f64
-        # holds every f32 and every count exactly)
-        host = torch.cat([
-            out.pose.reshape(16).to(torch.float64),
-            torch.stack([getattr(out, k).reshape(()).to(torch.float64)
-                         for k in _SCALARS])]).cpu().numpy()
-        pose = host[:16].reshape(4, 4).astype(np.float32)
-        o = dict(zip(_SCALARS, host[16:].tolist()))
-        self.trajectory.append(pose)
-        counts = {k: int(o[k]) for k in _SCALARS[:-2]}
-        success = bool(o["success"])
+        # one device->host transfer: the pose and every counter
+        sc = scan_driver.ChunkScalars.unpack(_np(row)[None])
+        self.trajectory.append(sc.pose[0])
+        counts = {k: int(getattr(sc, k)[0]) for k in _COUNTS}
+        success = bool(sc.success[0])
 
         inlier_ratio = counts["num_inliers"] / max(counts["num_matches"], 1.0)
         is_kf = (
@@ -206,10 +263,12 @@ class SLAMSystem:
                              size_after=int(m2.size))
 
         info = {"kind": "frame", "frame": self.frame_idx, **counts,
-                "scale": o["scale"], "success": success,
+                "scale": float(sc.scale[0]), "success": success,
                 "keyframe": bool(is_kf), "ran_ba": ran_ba,
-                "ran_maintenance": ran_maintenance,
-                "wall_s": time.perf_counter() - t0}
+                "ran_maintenance": ran_maintenance}
+        if fresh:
+            info["capture_s"] = g.capture_s
+        info["wall_s"] = time.perf_counter() - t0
         self.metrics.log(**info)
         self.frame_idx += 1
         return info
@@ -271,12 +330,11 @@ class SLAMSystem:
         # the host (the fetch synchronizes), without a capture
         track_s = time.perf_counter() - t1 - capture_s
         T = sc.pose.shape[0]
-        counts = scan_driver.ChunkScalars._fields[1:13]
         for i in range(T):
             self.trajectory.append(sc.pose[i])
             self.metrics.log(
                 kind="frame", frame=self.frame_idx,
-                **{k: int(getattr(sc, k)[i]) for k in counts},
+                **{k: int(getattr(sc, k)[i]) for k in _COUNTS},
                 scale=float(sc.scale[i]), success=bool(sc.success[i]),
                 keyframe=bool(sc.is_keyframe[i]), ran_ba=False,
                 ran_maintenance=bool(sc.ran_maintenance[i]))
@@ -397,6 +455,28 @@ class SLAMSystem:
                 <= max(0.5 * baseline, 1e-3)), max_move, baseline
 
     # ------------------------------------------------------------------
+    def _solve_robust(self, problem: ba.BAProblem, ba_cfg, reject_px: float,
+                      rounds: int):
+        """``ba.solve_robust`` of a window problem. On a card the replay of
+        a graph cached in ``ba_graphs`` by what ``jax.jit`` keys the
+        reference's solve on: the config, ``reject_px``, ``rounds`` and
+        each input's shape, dtype and device. The window's shapes come from
+        the config, so one graph serves every event of a run. On the CPU,
+        the eager solve."""
+        if self.device.type != "cuda":
+            return ba.solve_robust(problem, self._K, ba_cfg,
+                                   reject_px=reject_px, rounds=rounds)
+        key = (ba_cfg, reject_px, rounds, tuple(
+            (t.shape, t.dtype, t.device)
+            for t in (*scan_driver._tensors(problem), self._K)))
+        g = self.ba_graphs.get(key)
+        if g is None:
+            with torch.cuda.device(self.device):
+                g = self.ba_graphs[key] = _SolveGraph(
+                    problem, self._K, ba_cfg, reject_px, rounds)
+        return g(problem, self._K)
+
+    # ------------------------------------------------------------------
     def _refine_structure(self):
         """Structure-only window refinement (``BAConfig.structure_every``):
         the sliding-window problem with every camera fixed, so the solve is
@@ -408,8 +488,8 @@ class SLAMSystem:
         wp = keyframes.build_window_problem(
             self.kf_store, whole, cfg.replace(ba=ba_cfg),
             free_tail=0, prov_min_obs=2)
-        solved, stats = ba.solve_robust(wp.problem, self._K, ba_cfg,
-                                        reject_px=3.0, rounds=2)
+        solved, stats = self._solve_robust(wp.problem, ba_cfg, reject_px=3.0,
+                                           rounds=2)
         new_map, n_promoted = keyframes.apply_structure_result(
             whole, wp, solved,
             tracker._rad(0.5 * cfg.triangulation.promote_parallax_deg))
@@ -444,8 +524,8 @@ class SLAMSystem:
                              skipped="shallow", deep_obs=deep_obs,
                              ba_result_accepted=False)
             return
-        solved, stats = ba.solve_robust(wp.problem, self._K, self.cfg.ba,
-                                        reject_px=5.0, rounds=2)
+        solved, stats = self._solve_robust(wp.problem, self.cfg.ba,
+                                           reject_px=5.0, rounds=2)
         solved, gauge_s = self._pin_window_gauge(wp, solved)
         ba_accepted, max_move, baseline = self._ba_event_accepted(wp, solved)
         s_corr = 1.0
