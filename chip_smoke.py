@@ -77,10 +77,17 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
      the card;
  14. the sharded map (``parallel/``): (a) one rank with NCCL at full
      width, ``SLAMSystem(mesh=make_mesh("map", 1))`` over phase 8's 31
-     frames, then ``run_global_ba(mesh=)``, held to phase 8 as phase 11
-     holds its chunks (it prints whether every pose is bit-equal), <= 2
-     syncs per ordinary frame, K1/K2 launches equal to phase 8's, ms/frame
-     by kind beside phase 8's; (b) two spawned ranks sharing the card on
+     frames, replaying its step graph (the sharded step with its NCCL
+     collectives, captured at the bootstrap frame), then
+     ``run_global_ba(mesh=)``, held to phase 8 as phase 11 holds its
+     chunks (it prints whether every pose is bit-equal), <= 2 syncs per
+     ordinary frame, K1/K2 launches (captured x replays) equal to phase
+     8's, ms/frame by kind beside phase 8's and under 2x phase 8's for an
+     ordinary frame; the capture's seconds, the graph's nodes by type and
+     its NCCL kernels; the first 12 frames through the eager sharded step,
+     bit-equal to the captured run, with their ms/frame; 3 fresh captures
+     of the sharded step at map 51200, median replays within 3% of each
+     other (as 17c); (b) two spawned ranks sharing the card on
      gloo (NCCL refuses two ranks on one GPU; gloo stages each collective
      through the host), the default config (shards of 65536 slots):
      ``associate_sharded`` on phase 4's 120000-point map, which fills
@@ -98,7 +105,11 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
      ``sharded_ba.solve_sharded`` on phase 9's window problem held to the
      single-device solve with phase 9's bounds; (c)
      ``parallel.multi_sequence`` on the same two ranks over two
-     full-width sequences of 4 frames, equal to their individual runs;
+     full-width sequences of 4 frames, equal to their individual runs
+     (gloo: eager); (d) ``multi_sequence`` on one NCCL rank over the same
+     two sequences, ``batched_track_step`` replaying its graph (both
+     steps and the gather) bit-equal to the same steps eager, with ms per
+     batched step;
  15. endurance (``vslam_tpu_torch.tools``): (a) ``endurance_device`` at
      full width, 220 frames pre-rendered on the card, ``process_chunk`` in
      chunks of 25, then global BA, held to the reference's asserts
@@ -149,8 +160,8 @@ JSON object per kernel (route, source, the TPU kernel it replaces, launches
 on the main path of phase 8 (captured launches times replays), on the
 tracking step of phase 6, in phase 11's chunks, in phase 13's two runs
 (each captured launches times replays), on phase 14a's sharded path
-(eager), in phase 15a's endurance run and in phase 17a's bench (each
-captured launches times replays), max |error|
+and in phase 14d's batched steps, in phase 15a's endurance run and in
+phase 17a's bench (each captured launches times replays), max |error|
 vs the plain version, kernel, plain and library times, and the bound with
 what bounds it); then the nvidia-smi line; the
 last line is ``{"ok": true, "device": {...}}``. No GPU: exits 2 and prints
@@ -733,6 +744,13 @@ def check_lifecycle(torch, dev, m, failures):
         failures.append("lifecycle: the second min_free evicted nothing")
 
 
+def _kinds(infos):
+    """Each frame's kind, as ``_process_run`` groups them."""
+    return ["bootstrap"] + ["ba" if x["ran_ba"] else
+                            "keyframe" if x["keyframe"] else "ordinary"
+                            for x in infos[1:]]
+
+
 def _process_run(torch, s, frames, gt, label, failures):
     """``s.process`` over ``frames``, launch counters reset just before and
     read just after. Each ``process`` runs under
@@ -740,8 +758,8 @@ def _process_run(torch, s, frames, gt, label, failures):
     host clock per frame is taken between two ``synchronize()``. Holds the
     run to >= 80% tracked, ATE < 0.5, <= 2 syncs per ordinary frame, a
     window-BA attempt and one launch of each kernel per tracked frame. A
-    system with a step graph (one card, no mesh) captures it at the
-    bootstrap frame and replays it once per tracked frame: the wrappers'
+    system with a step graph (on a card, with no mesh or an NCCL one)
+    captures it at the bootstrap frame and replays it once per tracked frame: the wrappers'
     counters then count the warm-up and the capture, so its launches are
     read as phase 11 reads them, captured launches times replays, and the
     run fails unless the graph replayed once per tracked frame with K1 and
@@ -787,9 +805,7 @@ def _process_run(torch, s, frames, gt, label, failures):
             failures.append(f"{label}: the step graph replayed {g.replays} "
                             f"times in {n_frames - 1} tracked frames")
 
-    kinds = ["bootstrap"] + ["ba" if x["ran_ba"] else
-                             "keyframe" if x["keyframe"] else "ordinary"
-                             for x in infos[1:]]
+    kinds = _kinds(infos)
     ms = {}
     for k in ("ordinary", "keyframe", "ba"):
         sel = [1e3 * w for w, kk in zip(wall, kinds) if kk == k]
@@ -835,6 +851,27 @@ def _process_run(torch, s, frames, gt, label, failures):
     return rec, launches, ms
 
 
+def _warm_window_graph(torch, s, dev):
+    """Warm-up, off the clock: system ``s``'s graph of the window solve at
+    the window's shapes (cuSOLVER's first-call costs, then the capture);
+    a run's first window-BA event pays it, every later one replays.
+    Returns the graph."""
+    from vslam_tpu_torch.core.types import empty_map
+    from vslam_tpu_torch.pipeline import keyframes
+
+    cfg = s.cfg
+    wp0 = keyframes.build_window_problem(
+        keyframes.empty_store(40, cfg.frontend.max_keypoints, dev),
+        empty_map(cfg.map.capacity, cfg.map.obs_per_point, dev), cfg,
+        free_tail=cfg.ba.free_cams, prov_min_obs=99)
+    s._solve_robust(wp0.problem, cfg.ba, reject_px=5.0, rounds=2)
+    torch.cuda.synchronize()
+    (bag,) = s.ba_graphs.values()
+    print(f"window-BA graph captured in {bag.capture_s:.2f} s (eager "
+          "warm-up + capture)")
+    return bag
+
+
 def run_slam_path(torch, dev, failures):
     """Phase 8, the slice's main path: ``SLAMSystem.process`` of the default
     config on bench.py's scene, 31 frames at 1 m steps (keyframes every 5th
@@ -848,8 +885,6 @@ def run_slam_path(torch, dev, failures):
     it runs first in its process (``python -c "import chip_smoke as c;
     ...; c.run_slam_path(torch, dev, failures)"``)."""
     from vslam_tpu_torch.config import VSLAMConfig
-    from vslam_tpu_torch.core.types import empty_map
-    from vslam_tpu_torch.pipeline import keyframes
     from vslam_tpu_torch.pipeline.slam import SLAMSystem
     from vslam_tpu_torch.utils import evaluate
 
@@ -860,21 +895,11 @@ def run_slam_path(torch, dev, failures):
     frames = torch.from_numpy(np.stack(frames_np)).to(dev)
     print(f"rendered {n_frames} frames in {time.perf_counter() - t0:.1f} s")
     s = SLAMSystem(cfg, dev)
-    # warm-up, off the clock: the system's graph of the window solve at
-    # the window's shapes (cuSOLVER's first-call costs, then the capture);
-    # a run's first window-BA event pays it, every later one replays
-    wp0 = keyframes.build_window_problem(
-        keyframes.empty_store(40, cfg.frontend.max_keypoints, dev),
-        empty_map(cfg.map.capacity, cfg.map.obs_per_point, dev), cfg,
-        free_tail=cfg.ba.free_cams, prov_min_obs=99)
-    s._solve_robust(wp0.problem, cfg.ba, reject_px=5.0, rounds=2)
-    torch.cuda.synchronize()
-    (bag,) = s.ba_graphs.values()
-    print(f"window-BA graph captured in {bag.capture_s:.2f} s (eager "
-          "warm-up + capture)")
+    bag = _warm_window_graph(torch, s, dev)
 
     p8, launches, ms = _process_run(torch, s, frames, gt, "SLAM path",
                                     failures)
+    p8["nodes"] = s.step_graph.nodes
     print("process before it replayed a captured step (eager, PERF.md §5, "
           "NVIDIA H100 80GB HBM3, 700 W): ordinary 380.076, keyframe "
           "395.382, BA 475.461 ms/frame; window-BA graph replays "
@@ -1473,24 +1498,56 @@ def _held_to(ref, infos, poses, events, align):
     return bad, err
 
 
+# phase 14a: the eager sharded run held to the captured one, and the fresh
+# captures of the sharded step read for their mode (as 17c reads the
+# single-device step's)
+N_EAGER_SHARDED, N_SHARDED_MODES = 12, 3
+
+
+def _nccl_kernels(graph):
+    """The NCCL kernel nodes of a captured graph, by (mangled) name."""
+    from vslam_tpu_torch.utils.profiling import graph_kernels
+
+    return {k: n for k, n in graph_kernels(graph).items() if "nccl" in k}
+
+
 def run_sharded_one_rank(torch, dev, p8, launches8, ms8, failures):
     """Phase 14a: the sharded-map mode on one rank with NCCL at full width
     (every collective on the card): ``SLAMSystem(mesh=)`` over phase 8's 31
-    frames (``_process_run``: <= 2 syncs per ordinary frame), held to phase
-    8; then ``run_global_ba(mesh=)``. Returns (the mesh, launches, ms/frame
-    by kind)."""
+    frames, replaying its step graph, which holds the sharded step and its
+    collectives (``_process_run``: captured at the bootstrap frame, K1 and
+    K2 once each, one replay a tracked frame, <= 2 syncs per ordinary
+    frame), held to phase 8; the graph's nodes by type and its NCCL
+    kernels; the first 12 frames again through the eager sharded step (the
+    system's step graph dropped), bit-equal to the captured run; 3 fresh
+    captures of the sharded step at map 51200 (``tools.bench.
+    capture_modes(mesh=)``), one mode; then ``run_global_ba(mesh=)``.
+    Returns (the mesh, launches, ms/frame by kind, the record)."""
     import torch.distributed as dist
 
     from vslam_tpu_torch.config import VSLAMConfig
     from vslam_tpu_torch.parallel import mesh as mesh_mod
     from vslam_tpu_torch.pipeline.slam import SLAMSystem
+    from vslam_tpu_torch.tools import bench
 
     cfg = VSLAMConfig()
     mesh = mesh_mod.make_mesh(cfg.mesh.axis_map, 1)
-    print(f"14a: {mesh}, backend {dist.get_backend()}")
+    print(f"14a: {mesh}, backend {dist.get_backend()}, collectives "
+          f"capturable {mesh_mod.capturable(mesh)}")
     s = SLAMSystem(cfg, dev, mesh=mesh)
+    if s.step_graph is None:
+        failures.append("14a: the meshed system on NCCL has no step graph")
+        return mesh, {"hamming": 0, "associate": 0}, {}, {}
+    _warm_window_graph(torch, s, dev)
     rec, launches, ms = _process_run(torch, s, p8["frames"], p8["gt"],
                                      "sharded, 1 rank (NCCL)", failures)
+    g = s.step_graph
+    nccl = _nccl_kernels(g.graph)
+    print(f"14a step graph: capture {g.capture_s:.2f} s, nodes by type "
+          f"{g.nodes} (phase 8's single-device graph {p8['nodes']}), NCCL "
+          f"kernels {nccl} ({sum(nccl.values())} of "
+          f"{g.nodes.get('kernel', 0)} kernel nodes; on one rank NCCL "
+          "launches no kernel for an in-place all_reduce)")
     align = cfg.pipeline.keyframe_every * cfg.pipeline.local_ba_every
     bad, err = _held_to(p8, rec["infos"], rec["poses"], rec["events"], align)
     print(f"14a vs phase 8: max |pose diff| {err[:align + 1].max():.2e} to "
@@ -1500,10 +1557,53 @@ def run_sharded_one_rank(torch, dev, p8, launches8, ms8, failures):
     failures.extend(f"14a vs phase 8: {b}" for b in bad)
     if launches != launches8:
         failures.append(f"14a launches {launches} vs phase 8's {launches8}")
-    for k, (v, n) in ms.items():
+
+    n = N_EAGER_SHARDED
+    e = SLAMSystem(cfg, dev, mesh=mesh)
+    e.step_graph = None                   # the eager sharded step
+    eager = _timed_run(torch, e, p8["frames"][:n])
+    del e
+    same = (np.array_equal(eager["poses"], rec["poses"][:n])
+            and eager["infos"] == _strip(rec["infos"][:n]))
+    kinds = _kinds(rec["infos"][:n])
+    ms_eager = {}
+    for k in ("ordinary", "keyframe"):
+        sel = [w for w, kk in zip(eager["wall_ms"][1:], kinds[1:])
+               if kk == k]
+        ms_eager[k] = float(np.mean(sel)) if sel else None
+    print(f"14a eager sharded step, frames 0-{n - 1}: bit-equal to the "
+          f"captured run {same}; ordinary / keyframe "
+          f"{ms_eager['ordinary']:.3f} / {ms_eager['keyframe']:.3f} "
+          f"ms/frame (launches {eager['launches']})")
+    if not same:
+        failures.append("14a: the eager sharded run differs from the "
+                        "captured one")
+    for k, (v, cnt) in ms.items():
         if v is not None:
-            print(f"14a process {k}: {v:.3f} ms/frame (n={n}), phase 8 "
-                  f"{ms8[k][0]:.3f}")
+            print(f"14a process {k}: {v:.3f} ms/frame (n={cnt}), phase 8 "
+                  f"{ms8[k][0]:.3f}" + (f", eager sharded {ms_eager[k]:.3f}"
+                                        if ms_eager.get(k) else ""))
+    if not ms["ordinary"][0] < 2 * ms8["ordinary"][0]:
+        failures.append(f"14a: ordinary frame {ms['ordinary'][0]:.2f} ms, "
+                        f"phase 8 {ms8['ordinary'][0]:.2f}: not under 2x")
+
+    modes = bench.capture_modes(dev, N_SHARDED_MODES, mesh=mesh)
+    for i, r in enumerate(modes):
+        print(f"14a fresh capture {i} of the sharded step (map 51200): "
+              f"nodes {r['nodes']}; replay median {r['median_ms']:.4f} "
+              f"device ms (min {min(r['span_ms']):.4f}, max "
+              f"{max(r['span_ms']):.4f}); capture {r['capture_s']:.2f} s")
+    med = [r["median_ms"] for r in modes]
+    spread = max(med) / min(med) - 1
+    print(f"14a: {len(modes)} captures, slowest / fastest - 1 = "
+          f"{spread:.4f} ({_smi()})")
+    if spread > MODE_SPREAD:
+        failures.append(f"14a: fresh captures' medians {med}, spread "
+                        f"{spread:.4f} > {MODE_SPREAD}")
+    if any(r["nodes"] != modes[0]["nodes"] for r in modes):
+        failures.append("14a: captures of one sharded step hold other "
+                        "nodes")
+
     t0 = time.perf_counter()
     stats = s.run_global_ba(mesh=mesh, axis_name=cfg.mesh.axis_map)
     torch.cuda.synchronize()
@@ -1515,7 +1615,95 @@ def run_sharded_one_rank(torch, dev, p8, launches8, ms8, failures):
         failures.append(f"14a global BA: {init} -> {fin}, {cov}")
     if not np.isfinite(s.keyframe_poses()).all():
         failures.append("14a: non-finite keyframe poses after global BA")
-    return mesh, launches, ms
+    return mesh, launches, ms, dict(
+        capture_s=g.capture_s, nodes=g.nodes, nccl=sum(nccl.values()),
+        eager=ms_eager, modes=med, spread=spread)
+
+
+def run_multi_sequence_one_rank(torch, dev, failures):
+    """Phase 14d: ``parallel.multi_sequence`` on one NCCL rank, two
+    full-width sequences of MS_FRAMES frames: ``batched_track_step``
+    replaying its graph (the rank's two steps and the gather; captured at
+    the first step) against the same steps eager (the state's graph
+    dropped), bit-equal, every output field and the final states; launch
+    counters reset just before the captured run and read just after (K1
+    and K2 captured twice each, once a sequence). Prints ms per batched
+    step (host clock, between two ``synchronize()``; the first, which
+    captures, apart). Returns (launches, record)."""
+    import dataclasses
+
+    from vslam_tpu_torch.config import VSLAMConfig
+    from vslam_tpu_torch.ops import associate as k2
+    from vslam_tpu_torch.ops import hamming
+    from vslam_tpu_torch.parallel import mesh as mesh_mod
+    from vslam_tpu_torch.parallel import multi_sequence
+
+    cfg = VSLAMConfig()
+    dmesh = mesh_mod.make_mesh("data", 1)
+    seeds = [5, 6]
+    seqs = torch.from_numpy(np.stack([
+        _render(cfg, MS_FRAMES, BENCH_SCENE, 1.0, sd)[0]
+        for sd in seeds])).to(dev)
+
+    def run(bst):
+        outs, wall = [], []
+        for fi in range(1, MS_FRAMES):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bst, o = multi_sequence.batched_track_step(bst, seqs[:, fi], cfg,
+                                                       dmesh, "data")
+            torch.cuda.synchronize()
+            wall.append(1e3 * (time.perf_counter() - t0))
+            outs.append(o)
+        return bst, outs, wall
+
+    boot = lambda: multi_sequence.batched_bootstrap(
+        seqs[:, 0], cfg, dmesh, "data", seeds=seeds, device=dev)
+    eager, e_outs, e_wall = run(dataclasses.replace(boot(), graph=None))
+    bst = boot()
+    hamming.launches = 0
+    k2.launches = 0
+    bst, outs, wall = run(bst)
+    counted = {"hamming": hamming.launches, "associate": k2.launches}
+    g = bst.graph
+    launches = {k: v * g.replays for k, v in g.captured_launches.items()}
+    differs = [(fi, k) for fi, (o, oe) in enumerate(zip(outs, e_outs), 1)
+               for k, x, y in zip(o._fields, o, oe) if not torch.equal(x, y)]
+    for j, (a, b) in enumerate(zip(bst.states, eager.states)):
+        differs += [(j, n) for n, x, y in _state_pairs(torch, a, b)
+                    if not torch.equal(x, y)]
+    ok = [int(o.success.sum()) for o in outs]
+    print(f"14d: multi_sequence, {len(seeds)} full-width sequences x "
+          f"{MS_FRAMES} frames on one NCCL rank: batched graph captured at "
+          f"the first step in {g.capture_s:.2f} s, nodes {g.nodes}, NCCL "
+          f"kernels {_nccl_kernels(g.graph)}; kernels captured "
+          f"{g.captured_launches}, replays {g.replays}, launches {launches} "
+          f"(wrapper counters {counted}: the warm-up and the capture); "
+          f"bit-equal to the eager steps {not differs} {differs[:8]}; "
+          f"sequences tracked per step {ok}")
+    print(f"14d ms per batched step (host clock): graph {wall[0]:.1f} "
+          f"(capture), then {np.mean(wall[1:]):.3f}; eager {e_wall[0]:.1f} "
+          f"(first), then {np.mean(e_wall[1:]):.3f}")
+    if differs:
+        failures.append(f"14d: the captured batched step differs from the "
+                        f"eager one: {differs[:8]}")
+    if g.replays != MS_FRAMES - 1 or g.captured_launches != {
+            "hamming": len(seeds), "associate": len(seeds)}:
+        failures.append(f"14d: {g.replays} replays, kernels captured "
+                        f"{g.captured_launches}")
+    return launches, dict(ms=float(np.mean(wall[1:])),
+                          eager_ms=float(np.mean(e_wall[1:])),
+                          capture_s=g.capture_s)
+
+
+def _state_pairs(torch, a, b):
+    """(name, a's tensor, b's tensor) of two states' tensors, and of their
+    generators' states."""
+    out = [(n, x, y) for (n, x), (_, y) in zip(_tensors(a, ""),
+                                               _tensors(b, ""))]
+    if isinstance(a.key, torch.Generator):
+        out.append(("key", a.key.get_state(), b.key.get_state()))
+    return out
 
 
 # phase 14b/c: phase 8's first frames, the multi-sequence run's length
@@ -1526,8 +1714,9 @@ PRELOAD_GAP = 16
 
 
 def _strip(infos):
-    return [{k: v for k, v in x.items() if k not in ("wall_s", "t")}
-            for x in infos]
+    """Infos without the host clock's keys."""
+    return [{k: v for k, v in x.items()
+             if k not in ("wall_s", "t", "capture_s")} for x in infos]
 
 
 def _timed_run(torch, s, frames):
@@ -1556,7 +1745,7 @@ def _timed_run(torch, s, frames):
         infos=_strip(infos), poses=s.poses(),
         events=[r for r in s.metrics.records if r.get("kind") == "ba"],
         launches={"hamming": hamming.launches, "associate": k2.launches},
-        ms=1e3 * float(np.mean(tracked)),
+        ms=1e3 * float(np.mean(tracked)), wall_ms=[1e3 * w for w in wall],
         shard=(m.capacity, m.desc.shape[0]), local_alive=int(m.alive.sum()))
 
 
@@ -1717,7 +1906,7 @@ def _sharded_rank(rank, init, payload, out_dir):
                                                    dmesh, "data")
         poses.append(o.pose.cpu().numpy())
     res["multiseq"] = np.stack(poses, axis=1)
-    dist.destroy_process_group()
+    multihost.shutdown()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(res, f)
 
@@ -2236,6 +2425,7 @@ def main() -> int:
 
     from vslam_tpu_torch.config import VSLAMConfig
     from vslam_tpu_torch.ops import _build
+    from vslam_tpu_torch.parallel import multihost
 
     failures = []
     kern = _build.load()
@@ -2284,14 +2474,17 @@ def main() -> int:
     phase_done(12)
     variants = run_variants(torch, dev, p8, failures)
     phase_done(13)
-    mesh1, sharded_launches, ms_sharded = run_sharded_one_rank(
+    mesh1, sharded_launches, ms_sharded, sharded = run_sharded_one_rank(
         torch, dev, p8, launches, ms_kind, failures)
     phase_done("14a")
     two = run_sharded_two_ranks(torch, dev, mesh1, p8, window_problem,
                                 failures)
     del p8, window_problem
-    torch.distributed.destroy_process_group()
     phase_done("14b-c")
+    multiseq_launches, multiseq = run_multi_sequence_one_rank(torch, dev,
+                                                              failures)
+    multihost.shutdown()            # frees 14a's and 14d's NCCL graphs
+    phase_done("14d")
     endurance_launches = run_endurance(torch, dev, failures)
     phase_done(15)
     ba_bench = run_bench_ba(torch, dev, failures)
@@ -2316,6 +2509,7 @@ def main() -> int:
              launches_variants_chunked=variants["chunk"]["launches"][
                  "hamming"],
              launches_sharded=sharded_launches["hamming"],
+             launches_multi_sequence=multiseq_launches["hamming"],
              launches_endurance=endurance_launches["hamming"],
              launches_bench=bench_res["launches"]["hamming"], **k1),
         dict(name="associate", route="cuda",
@@ -2328,6 +2522,7 @@ def main() -> int:
              launches_variants_chunked=variants["chunk"]["launches"][
                  "associate"],
              launches_sharded=sharded_launches["associate"],
+             launches_multi_sequence=multiseq_launches["associate"],
              launches_endurance=endurance_launches["associate"],
              launches_bench=bench_res["launches"]["associate"], **k2),
     ]
@@ -2349,9 +2544,15 @@ def main() -> int:
           + f", chunked {variants['chunk']['ms_frame']:.3f} ms/frame, "
           f"capture {variants['chunk']['capture_s']:.2f} s, pool peak "
           f"{variants['chunk']['pool_mib']:.1f} MiB; sharded (phase 14a, "
-          "NCCL, 1 rank) process "
+          "NCCL, 1 rank, graph) process "
           + ", ".join(f"{k} {v[0]:.3f} (n={v[1]})"
                       for k, v in ms_sharded.items() if v[0] is not None)
+          + f", eager ordinary {sharded['eager']['ordinary']:.3f}, "
+          f"capture {sharded['capture_s']:.2f} s, fresh captures' median "
+          "replays " + ", ".join(f"{m:.3f}" for m in sharded["modes"])
+          + f" ms (spread {sharded['spread']:.4f}); multi-sequence (14d, "
+          f"2 sequences, graph) {multiseq['ms']:.3f} ms per batched step, "
+          f"eager {multiseq['eager_ms']:.3f}"
           + f"; two ranks on gloo (phase 14b, a check, not a rate) "
           f"{two['ms_frame']:.3f} ms/frame, BA {two['ba_ms']:.3f} ms/solve"
           + "; BA 20x8192x16 (phase 16) " + ", ".join(

@@ -3,7 +3,8 @@
 Shared by tests/test_torch_parallel.py, tests/test_torch_sharded_tracking.py
 and tests/test_torch_multi_sequence.py. ``results(tmp_path_factory)``
 builds every input from seeds (the reference's maps, RANSAC sample batches
-and BA problems as numpy), starts two groups of the port
+and BA problems as numpy, and tests/torch_frozen.py's ``process`` case),
+starts two groups of the port
 (``torch_dist.group_worker`` at D = 2, joined through
 ``multihost.initialize`` from torchrun's environment variables, and at
 D = 4), computes the references while they run (the JAX package on the
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 import tests.test_parallel as jpar
-from tests import torch_dist
+from tests import torch_dist, torch_frozen
 from tests.test_ba import K as BA_K
 from tests.test_ba import _make_problem
 from tests.test_geometry import _two_view_setup
@@ -207,8 +208,10 @@ def _compute_all(pool):
     multiseq = dict(cfg=cfg.to_json(), seqs=seqs,
                     seeds=np.arange(100, 104))
 
+    process = dict(cfg=torch_frozen.CFG.to_json(),
+                   frames=torch_frozen.frames())
     base = dict(assoc=assoc, mapops=mapops, ransac=rs, fund=fund, ba=bac,
-                slam=slam)
+                slam=slam, process=process)
     dirs = [tempfile.mkdtemp(prefix=f"vslam_d{d}_") for d in (2, 4, 1)]
     ckpt = [os.path.join(d, "ckpt") for d in dirs]
     g2 = pool.submit(torch_dist.run_group, torch_dist.group_worker, 2,

@@ -135,3 +135,55 @@ def test_make_mesh_refuses_without_its_backend():
     assert mesh_mod.pad_to_multiple(130, 64) == 192
     assert torch.equal(mesh_mod.replicated(None, torch.ones(2)),
                        torch.ones(2))
+
+
+class _Graph:
+    """Stands in for a captured CUDA graph: counts its ``reset``s."""
+
+    def __init__(self):
+        self.resets = 0
+
+    def reset(self):
+        self.resets += 1
+
+
+def test_shutdown_frees_graphs_that_captured_collectives():
+    """``multihost.shutdown`` frees every live graph noted by
+    ``mesh.keep_captured`` (NCCL's teardown waits for them), whoever
+    holds it, once, and forgets graphs nothing holds; with no group it
+    leaves nothing."""
+    import gc
+
+    import torch.distributed as dist
+    from vslam_tpu_torch.parallel import multihost
+
+    held, dropped = _Graph(), _Graph()
+    mesh_mod.keep_captured(held)
+    mesh_mod.keep_captured(dropped)
+    del dropped
+    gc.collect()
+    multihost.shutdown()
+    assert held.resets == 1
+    assert mesh_mod.free_captured() == 0         # nothing noted is left
+    assert held.resets == 1
+    assert not dist.is_initialized()
+
+
+def test_cli_mesh_run_leaves_the_group_when_it_raises(monkeypatch, tmp_path):
+    """``cli run --mesh`` leaves the group (``multihost.shutdown``) also
+    when the run raises, and the error reaches the caller."""
+    from vslam_tpu_torch import cli
+    from vslam_tpu_torch.parallel import multihost
+
+    calls = []
+
+    def fail(args):
+        raise RuntimeError("planted")
+
+    monkeypatch.setattr(cli, "_run", fail)
+    monkeypatch.setattr(multihost, "shutdown", lambda: calls.append(1))
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="planted"):
+        cli.main(["run", "--synthetic", "--small", "--mesh", "1",
+                  "--device", "cpu", "--out", str(tmp_path)])
+    assert calls == [1]

@@ -18,6 +18,13 @@ unsharded system and the port's single-device one
     loaded from it finishes the run as the uninterrupted one does.
   * Every rank holds the same trajectory (the host decisions read only
     replicated values).
+  * ``process`` on the mesh, through ``scan_driver.track_frame`` (the
+    plumbing that replays the step graph on an NCCL mesh, eager here),
+    equals the frozen eager mesh path (``torch_frozen.EagerProcess``)
+    frame by frame, with window BA, structure refinement and maintenance
+    in the run, hypothesis sharding on and off; gloo's collectives are
+    not captured (``mesh.capturable`` says no, ``step_graph`` refuses the
+    mesh, the system has no step graph).
   * Maintenance through the sharded map: capacity 128 in 32-slot shards
     over 4 ranks, 22 frames: maintenance runs, no insert drops, and the
     run is bit-identical to the single-device port.
@@ -112,6 +119,27 @@ def test_sharded_checkpoint_resume(res, D):
         after = [e for e in full["events"] if e["frame"] >= start]
         assert resumed["events"] == after
         assert any(e["kind"] == "ba" for e in after)             # premise
+
+
+@pytest.mark.parametrize("D", D_ALL)
+@pytest.mark.parametrize("hyp", [True, False])
+def test_sharded_process_matches_frozen_eager(res, D, hyp):
+    for rank in res[f"d{D}"]:
+        got = rank["process"][hyp]
+        assert got["premises"] is None, got["premises"]
+        assert got["differs"] is None, got["differs"]
+    ranks = [r["process"][hyp]["poses"] for r in res[f"d{D}"]]
+    for poses in ranks[1:]:
+        np.testing.assert_array_equal(poses, ranks[0])
+
+
+@pytest.mark.parametrize("D", D_ALL)
+def test_gloo_mesh_is_not_captured(res, D):
+    for rank in res[f"d{D}"]:
+        assert rank["capturable"] is False
+        assert rank["step_graph_refused"] is True
+        assert all(x["step_graph"] is None
+                   for x in rank["process"].values())
 
 
 def test_sharded_tracking_through_maintenance(res):

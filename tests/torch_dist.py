@@ -11,8 +11,11 @@ association, the shard-local map operations, hypothesis-sharded RANSAC,
 landmark-sharded BA, the SLAM system with the sharded map (with and without
 hypothesis sharding, then sharded global BA; the latter saved partway by
 ``save_state`` and resumed by ``load_state`` into a fresh meshed system),
-maintenance through the sharded map (D = 4) and multi-sequence tracking
-(D = 2).
+``process`` on the mesh against the frozen eager mesh path
+(``torch_frozen.EagerProcess``, with window BA, structure refinement and
+maintenance, hypothesis sharding on and off), maintenance through the
+sharded map (D = 4) and multi-sequence tracking (D = 2, also against the
+frozen eager loop); and that gloo's collectives are not captured.
 """
 from __future__ import annotations
 
@@ -87,7 +90,7 @@ def _entry(rank, init, worker, world_size, torchrun_env, payload, tmp_dir):
     try:
         result = worker(rank, world_size, payload)
     finally:
-        dist.destroy_process_group()
+        multihost.shutdown()
     with open(os.path.join(tmp_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(result, f)
 
@@ -211,17 +214,61 @@ def track_sequence(cfg, frames, seed):
     return np.stack(poses), np.array(inl)
 
 
+def _failure(check, *args):
+    """None when ``check(*args)`` passes, else its AssertionError's text
+    (what a rank hands back instead of raising)."""
+    try:
+        check(*args)
+    except AssertionError as e:
+        return f"{check.__name__}: {e!r}"
+    return None
+
+
+def frozen_process(mesh, cfg_json, frames):
+    """``process`` on ``mesh`` (through ``scan_driver.track_frame``)
+    against ``torch_frozen.EagerProcess``, the eager mesh path as it was,
+    over ``frames``, with hypothesis sharding on and off: per setting,
+    whether the two runs are equal (None) or how they differ, the
+    premises' verdict, the step graph (None on the CPU) and the poses."""
+    import torch_frozen
+    from vslam_tpu_torch.config import VSLAMConfig
+    from vslam_tpu_torch.pipeline.slam import SLAMSystem
+
+    cfg = VSLAMConfig.from_json(cfg_json)
+    out = {}
+    for hyp in (True, False):
+        c = cfg.replace(mesh=dataclasses.replace(cfg.mesh,
+                                                 shard_hypotheses=hyp))
+        a, ia, oa = torch_frozen.run(SLAMSystem, c, "torch", frames, "cpu",
+                                     mesh)
+        b, ib, ob = torch_frozen.run(torch_frozen.EagerProcess, c, "torch",
+                                     frames, "cpu", mesh)
+        out[hyp] = dict(
+            differs=_failure(torch_frozen.assert_same_run, a, ia, oa, b, ib,
+                             ob),
+            premises=_failure(torch_frozen.premises, a, ia),
+            step_graph=a.step_graph, poses=a.poses())
+    return out
+
+
 def group_worker(rank, D, p):
     """Every sharded check of mesh size D (see the module docstring)."""
+    import torch_frozen
     from vslam_tpu_torch import interop
     from vslam_tpu_torch.config import BAConfig, VSLAMConfig
     from vslam_tpu_torch.optimizer import ba
     from vslam_tpu_torch.parallel import (mesh as mesh_mod, multi_sequence,
                                           sharded_ba, sharded_map,
                                           sharded_ransac, sharded_tracker)
+    from vslam_tpu_torch.pipeline import scan_driver
 
     mesh = mesh_mod.make_mesh("map", D, device_type="cpu")
-    out = {}
+    out = {"capturable": mesh_mod.capturable(mesh)}
+    try:
+        scan_driver.step_graph(VSLAMConfig(), mesh=mesh)
+        out["step_graph_refused"] = False
+    except ValueError:
+        out["step_graph_refused"] = True
 
     a = p["assoc"]
     cfg = VSLAMConfig.from_json(a["cfg"])
@@ -280,6 +327,8 @@ def group_worker(rank, D, p):
                                save_at=s["save_at"], ckpt=p["ckpt"])
     out["resumed"] = resume_slam(off, s["frames"], s["save_at"], p["ckpt"],
                                  mesh=mesh)
+    out["process"] = frozen_process(mesh, p["process"]["cfg"],
+                                    p["process"]["frames"])
     if "maint" in p:
         mt = p["maint"]
         out["maint"] = run_slam(VSLAMConfig.from_json(mt["cfg"]),
@@ -292,13 +341,213 @@ def group_worker(rank, D, p):
         bst = multi_sequence.batched_bootstrap(seqs[:, 0], mcfg, dmesh,
                                                "data", seeds=ms["seeds"],
                                                device="cpu")
-        poses, inl = [], []
+        frozen = multi_sequence.batched_bootstrap(
+            seqs[:, 0], mcfg, dmesh, "data", seeds=ms["seeds"],
+            device="cpu")
+        poses, inl, differs = [], [], []
         for fi in range(1, seqs.shape[1]):
             bst, o = multi_sequence.batched_track_step(bst, seqs[:, fi],
                                                        mcfg, dmesh, "data")
+            frozen, want = torch_frozen.eager_batched_track_step(
+                frozen, seqs[:, fi], mcfg, dmesh, "data")
             poses.append(o.pose.numpy())
             inl.append(o.num_inliers.numpy())
+            differs += [(fi, k) for k, x, y in zip(o._fields, o, want)
+                        if not torch.equal(x, y)]
         out["multiseq"] = dict(poses=np.stack(poses, axis=1),
                                inliers=np.stack(inl, axis=1),
-                               owned=len(bst.states))
+                               owned=len(bst.states), graph=bst.graph,
+                               frozen_differs=differs)
     return out
+
+
+# --- one-rank NCCL groups on a card (the ``gpu`` tests) -------------------
+
+
+def run_on_card(worker, payload, tmp_dir, timeout: float = JOIN_TIMEOUT_S):
+    """``worker(payload)`` in one spawned process on card 0, which makes
+    its own one-rank NCCL group (``mesh.make_mesh(axis, 1)``) so that no
+    other test's process inherits that backend; returns its result."""
+    from vslam_tpu_torch.parallel import multihost
+
+    codes = multihost.spawn(_card_entry, 1, (worker, payload, tmp_dir),
+                            timeout)
+    if any(codes):
+        raise RuntimeError(f"the card's process exited with {codes}")
+    with open(os.path.join(tmp_dir, "card.pkl"), "rb") as f:
+        return pickle.load(f)
+
+
+def _card_entry(rank, init, worker, payload, tmp_dir):
+    from vslam_tpu_torch.parallel import multihost
+
+    del rank, init
+    torch.cuda.set_device(0)
+    try:
+        result = worker(payload)
+    finally:
+        multihost.shutdown()
+    with open(os.path.join(tmp_dir, "card.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+def card_process_case(p):
+    """``process`` of ``p["cfg"]`` on a one-rank NCCL mesh over
+    ``p["frames"]``, replaying its step graph, against the frozen eager
+    mesh path and the single-device system (which replays its own step
+    graph): how each differs (None: equal), and what the graph did."""
+    import torch_frozen
+    from vslam_tpu_torch.config import VSLAMConfig
+    from vslam_tpu_torch.ops import associate as k2
+    from vslam_tpu_torch.ops import hamming as k1
+    from vslam_tpu_torch.parallel import mesh as mesh_mod
+    from vslam_tpu_torch.pipeline.slam import SLAMSystem
+
+    cfg, rng, frames = VSLAMConfig.from_json(p["cfg"]), p["rng"], p["frames"]
+    dev = torch.device("cuda", 0)
+    mesh = mesh_mod.make_mesh(cfg.mesh.axis_map, 1)
+    eager = torch_frozen.run(torch_frozen.EagerProcess, cfg, rng, frames,
+                             dev, mesh)
+    s = SLAMSystem(cfg, dev, rng=rng, mesh=mesh)
+    ia = [s.process(torch.from_numpy(frames[0]).to(dev))]
+    g = s.step_graph
+    before = (k1.launches, k2.launches)
+    oa = []
+    for f in frames[1:]:
+        ia.append(s.process(torch.from_numpy(f).to(dev)))
+        oa.append(s.last_output)
+    out = dict(
+        backend=dist.get_backend(), capture_s=ia[0].get("capture_s"),
+        graph_capture_s=g.capture_s, replays=g.replays,
+        captured_launches=g.captured_launches, nodes=g.nodes,
+        launched_outside=(k1.launches, k2.launches) != before,
+        later_capture=any("capture_s" in x for x in ia[1:]),
+        vs_eager=_failure(torch_frozen.assert_same_run, s, ia, oa, *eager),
+        premises=(_failure(torch_frozen.premises, s, ia) if p["premises"]
+                  else None))
+    single = torch_frozen.run(SLAMSystem, cfg, rng, frames, dev)
+    out["vs_single"] = _failure(torch_frozen.assert_same_run, s, ia, oa,
+                                *single)
+    return out
+
+
+def card_restore_case(p):
+    """A meshed system (one NCCL rank) saved after ``p["cut"]`` frames and
+    restored by ``load_state`` into a fresh meshed system: whether the
+    latter captured its step graph at its first tracked frame, and how the
+    two differ over the remaining frames."""
+    import torch_frozen
+    from vslam_tpu_torch.parallel import mesh as mesh_mod
+    from vslam_tpu_torch.pipeline.slam import SLAMSystem
+    from vslam_tpu_torch.utils import checkpoint
+
+    cfg, frames, cut = torch_frozen.CFG, p["frames"], p["cut"]
+    dev = torch.device("cuda", 0)
+    mesh = mesh_mod.make_mesh(cfg.mesh.axis_map, 1)
+    a = SLAMSystem(cfg, dev, rng="threefry", mesh=mesh)
+    for f in frames[:cut]:
+        a.process(torch.from_numpy(f).to(dev))
+    checkpoint.save_state(p["ckpt"], a)
+    b = SLAMSystem(cfg, dev, rng="threefry", mesh=mesh)
+    checkpoint.load_state(p["ckpt"], b)
+    out = dict(graph_before=b.step_graph.graph is not None)
+    ia, ib = [], []
+    for f in frames[cut:]:
+        x = torch.from_numpy(f).to(dev)
+        ia.append(a.process(x))
+        ib.append(b.process(x))
+    state = [(n, torch.equal(x, y)) for (n, x), (_, y) in zip(
+        torch_frozen.tensors(a.state), torch_frozen.tensors(b.state))]
+    out.update(
+        first_capture_s=ib[0].get("capture_s"),
+        graph_capture_s=b.step_graph.capture_s,
+        replays=b.step_graph.replays,
+        same_infos=torch_frozen.strip(ia) == torch_frozen.strip(ib),
+        same_trajectory=all(np.array_equal(x, y) for x, y in zip(
+            a.trajectory, b.trajectory)),
+        state_differs=[n for n, same in state if not same])
+    return out
+
+
+def card_batched_case(p):
+    """``multi_sequence`` on a one-rank NCCL mesh: the batched step
+    replaying its graph, the same step eager (the state's graph dropped)
+    and the frozen eager loop, from three bootstraps of the same
+    sequences: the fields that differ, per step, and the graph's record."""
+    import torch_frozen
+    from vslam_tpu_torch.config import VSLAMConfig
+    from vslam_tpu_torch.ops import associate as k2
+    from vslam_tpu_torch.ops import hamming as k1
+    from vslam_tpu_torch.parallel import mesh as mesh_mod
+    from vslam_tpu_torch.parallel import multi_sequence
+
+    cfg = VSLAMConfig.from_json(p["cfg"])
+    dev = torch.device("cuda", 0)
+    dmesh = mesh_mod.make_mesh("data", 1)
+    seqs = torch.from_numpy(p["seqs"]).to(dev)
+    boot = lambda: multi_sequence.batched_bootstrap(
+        seqs[:, 0], cfg, dmesh, "data", seeds=p["seeds"], device=dev)
+    a, b, c = boot(), dataclasses.replace(boot(), graph=None), boot()
+    differs, launched = [], []
+    for fi in range(1, seqs.shape[1]):
+        before = (k1.launches, k2.launches)
+        a, oa = multi_sequence.batched_track_step(a, seqs[:, fi], cfg,
+                                                  dmesh, "data")
+        launched.append((k1.launches - before[0], k2.launches - before[1]))
+        b, ob = multi_sequence.batched_track_step(b, seqs[:, fi], cfg,
+                                                  dmesh, "data")
+        c, oc = torch_frozen.eager_batched_track_step(c, seqs[:, fi], cfg,
+                                                      dmesh, "data")
+        for name, x, y, z in zip(oa._fields, oa, ob, oc):
+            if not (torch.equal(x, y) and torch.equal(x, z)):
+                differs.append((fi, name))
+    for j, (x, y) in enumerate(zip(a.states, b.states)):
+        differs += [(j, n) for (n, u), (_, v) in zip(
+            torch_frozen.tensors(x), torch_frozen.tensors(y))
+            if not torch.equal(u, v)]
+        if not torch.equal(x.key.get_state(), y.key.get_state()):
+            differs.append((j, "key"))
+    try:                       # an input of another shape than the slot's
+        multi_sequence.batched_track_step(a, seqs[:, 1, :, :-8], cfg, dmesh,
+                                          "data")
+        shape_refused = False
+    except ValueError:
+        shape_refused = True
+    g = a.graph
+    return dict(differs=differs, launched=launched, replays=g.replays,
+                shape_refused=shape_refused,
+                nodes=g.nodes, capture_s=g.capture_s,
+                eager_graph=b.graph, poses=oa.pose.cpu().numpy())
+
+
+def card_teardown_case(p):
+    """``cli run --mesh 1`` on one NCCL rank, made to raise after its step
+    graph was captured and replayed (``SLAMSystem.snapshot`` raises): what
+    was raised, whether the group was left, and whether the system's graph
+    was freed although the traceback still holds the system."""
+    from vslam_tpu_torch import cli
+    from vslam_tpu_torch.pipeline import slam
+
+    systems = []
+
+    def snapshot(self):
+        systems.append(self)
+        raise RuntimeError("planted after the capture")
+
+    slam.SLAMSystem.snapshot = snapshot
+    try:
+        cli.main(["run", "--synthetic", "--small", "--frames",
+                  str(p["frames"]), "--mesh", "1", "--out", p["out"]])
+        raised = None
+    except RuntimeError as e:
+        raised = str(e)
+    g = systems[0].step_graph if systems else None
+    freed = None
+    if g is not None:
+        try:
+            g.graph.replay()
+            freed = False
+        except RuntimeError:
+            freed = True
+    return dict(raised=raised, left=not dist.is_initialized(),
+                replays=None if g is None else g.replays, freed=freed)

@@ -43,18 +43,20 @@ def _build_cfg(args, camera=None):
 
 
 def cmd_run(args):
-    if "WORLD_SIZE" in os.environ and args.mesh:
+    if not args.mesh:
+        return _run(args)
+    if "WORLD_SIZE" in os.environ:
         from .parallel import multihost
         multihost.initialize(device_type=args.device)
-        return _run(args)
-    if args.mesh and args.device == "cuda":
+        return _run_meshed(args)
+    if args.device == "cuda":
         import torch
         n = torch.cuda.device_count()
         if n < args.mesh:
             print(f"--mesh {args.mesh} needs {args.mesh} devices, have {n}",
                   file=sys.stderr)
             return 2
-    return _spawn(args) if args.mesh > 1 else _run(args)
+    return _spawn(args) if args.mesh > 1 else _run_meshed(args)
 
 
 def _spawn(args):
@@ -72,18 +74,24 @@ def _spawn(args):
 def _rank_main(rank: int, init_method: str, args):
     """One spawned rank: join the group, run, leave."""
     import torch
-    import torch.distributed as dist
 
     from .parallel import multihost
     if args.device == "cpu":
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.mesh))
     multihost.initialize(init_method, world_size=args.mesh, rank=rank,
                          local_rank=rank, device_type=args.device)
+    sys.exit(_run_meshed(args))
+
+
+def _run_meshed(args):
+    """``_run`` on the mesh, then leave the group, also when it raises
+    (``multihost.shutdown``: NCCL's teardown waits for the captured
+    graphs, which it frees first)."""
+    from .parallel import multihost
     try:
-        rc = _run(args)
+        return _run(args)
     finally:
-        dist.destroy_process_group()
-    sys.exit(rc)
+        multihost.shutdown()
 
 
 def _run(args):

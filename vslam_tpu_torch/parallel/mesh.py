@@ -19,12 +19,21 @@ the host (a host sync per call). So every collective here is an
 ``all_reduce``; ``all_gather`` is one over a zero-filled ``(D, ...)``
 buffer in which each rank writes its own row, which is exact (x + 0 = x;
 only a ``-0.0`` comes back as ``+0.0``).
+
+CUDA graphs: an NCCL collective can be captured in a CUDA graph and
+replayed (``capturable``), so a step that runs them is one replay a frame
+(``scan_driver.step_graph(mesh=)``, ``multi_sequence``). A gloo collective
+cannot: its host staging is a sync, which a capture forbids. NCCL's
+teardown waits for every graph that captured its collectives, so such a
+graph is noted (``keep_captured``) and ``multihost.shutdown`` frees it
+(``free_captured``) before it leaves the group.
 """
 from __future__ import annotations
 
 import datetime
 import os
 import tempfile
+import weakref
 from typing import Optional
 
 import torch
@@ -78,6 +87,38 @@ def make_mesh(axis_name: str, num_devices: Optional[int] = None,
                             mesh_dim_names=(axis_name,))
 
 
+def capturable(mesh: DeviceMesh) -> bool:
+    """Whether the mesh's collectives can be captured in a CUDA graph:
+    those of NCCL can (it enqueues them on the device, no host sync), those
+    of gloo cannot. Follows the backend alone."""
+    return dist.get_backend(mesh.get_group()) == "nccl"
+
+
+# every live CUDA graph that captured collectives (``keep_captured``)
+_CAPTURED = weakref.WeakSet()
+
+
+def keep_captured(graph) -> None:
+    """Note a CUDA graph that captured a mesh's collectives, for
+    ``free_captured``."""
+    _CAPTURED.add(graph)
+
+
+def free_captured() -> int:
+    """Free every live graph noted by ``keep_captured``
+    (``CUDAGraph.reset``), whoever still holds it: a system, or an
+    exception's traceback through a frame that held one. NCCL's
+    ``destroy_process_group`` waits until no graph that captured its
+    collectives is left (it hung on four H100s), so
+    ``multihost.shutdown`` calls this first. A freed graph's replay
+    raises. Returns how many were freed."""
+    graphs = list(_CAPTURED)
+    for g in graphs:
+        g.reset()
+    _CAPTURED.clear()
+    return len(graphs)
+
+
 def axis_size(mesh: DeviceMesh, axis: str) -> int:
     return mesh.size(mesh.mesh_dim_names.index(axis))
 
@@ -114,9 +155,10 @@ def pad_to_multiple(n: int, m: int) -> int:
 
 
 def _reduce(mesh: DeviceMesh, axis: str, x: torch.Tensor, op):
-    if x.dtype == torch.bool:
-        x = x.to(torch.int32)
-    out = x.clone()
+    """``op`` over the axis into a new tensor. The reduction is in place,
+    so it runs on a copy of ``x``: the int32 cast of a bool, else a
+    clone (in a CUDA graph one memcpy node a call)."""
+    out = x.to(torch.int32) if x.dtype == torch.bool else x.clone()
     dist.all_reduce(out, op=op, group=mesh.get_group(axis))
     return out
 

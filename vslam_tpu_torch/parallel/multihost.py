@@ -9,7 +9,8 @@ spans every rank of every host:
     torchrun --nproc-per-node N -m vslam_tpu_torch.cli run --mesh N ...
 
 A single process (``WORLD_SIZE`` unset or 1) joins nothing. ``spawn``
-starts the ranks of one host without torchrun.
+starts the ranks of one host without torchrun. ``shutdown`` leaves the
+group, the CUDA graphs that captured its collectives freed first.
 """
 from __future__ import annotations
 
@@ -64,6 +65,18 @@ def global_mesh(axis_name: str, device_type: Optional[str] = None,
     n = dist.get_world_size() if dist.is_initialized() else 1
     return mesh_mod.make_mesh(axis_name, n, device_type=device_type,
                               backend=backend)
+
+
+def shutdown() -> None:
+    """Leave the process group, if one is joined. Every live CUDA graph
+    that captured a mesh's collectives is freed first
+    (``mesh.free_captured``), whoever still holds it, because NCCL's
+    ``destroy_process_group`` waits for them: a rank whose program raised
+    with a captured system in its traceback would hang here instead of
+    exiting with its error. Call it in a ``finally``."""
+    mesh_mod.free_captured()
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def spawn(fn, nprocs: int, args=(), timeout: Optional[float] = None

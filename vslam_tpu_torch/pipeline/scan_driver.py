@@ -17,9 +17,10 @@ host-dependent control flow:
     only where the trigger fired.
 
 ``step_body`` is the step alone (no keyframe, no maintenance), the body
-of ``tools.bench``'s carried loop and of ``SLAMSystem.process``;
-``carried`` runs it over a chunk as ``run_chunk`` runs ``frame_body``,
-``track_frame`` over one frame.
+of ``tools.bench``'s carried loop and of ``SLAMSystem.process``, with or
+without a mesh (the sharded map, BASELINE config 4); ``carried`` runs it
+over a chunk as ``run_chunk`` runs ``frame_body``, ``track_frame`` over
+one frame.
 
 On a CPU device ``run_chunk`` is a Python loop over ``frame_body``. On a
 CUDA device it is ``ChunkGraph``: the body captured once as a CUDA graph on
@@ -27,7 +28,9 @@ static buffers (one copy of the tracker state, one of the keyframe store,
 one input slot, one scalars slot) and replayed once per frame, with the
 state copied in before the chunk and out after it, so window BA and
 ``SLAMSystem.process`` may run eagerly between chunks. There is no eager
-fallback on the card: a capture or replay that fails raises.
+fallback on the card: a capture or replay that fails raises. A step with
+a mesh is captured with its collectives when the mesh's are capturable
+(``parallel.mesh.capturable``: NCCL); on a gloo mesh it runs eagerly.
 
 Per frame only scalars leave the body: ``pack`` lays them out as one
 float64 row (float64 holds every f32 and every count exactly), and the
@@ -49,6 +52,7 @@ from ..config import VSLAMConfig
 from ..mapping import point_map
 from ..ops import associate as k2
 from ..ops import hamming as k1
+from ..parallel.mesh import capturable, keep_captured
 from ..utils.profiling import graph_nodes, use_graph_stream
 from . import keyframes as kf_mod
 from . import tracker
@@ -116,9 +120,13 @@ def _fields(obj):
 
 
 def _tensors(obj):
-    """Every tensor of a dataclass of tensors, nested ones included (none
-    for None)."""
+    """Every tensor of a dataclass of tensors, nested ones included, or of
+    a list of them (none for None)."""
     if obj is None:
+        return
+    if isinstance(obj, list):
+        for o in obj:
+            yield from _tensors(o)
         return
     for _, v in _fields(obj):
         if dataclasses.is_dataclass(v):
@@ -128,15 +136,31 @@ def _tensors(obj):
 
 
 def _map(fn, obj):
-    """``fn`` on every tensor of a dataclass of tensors (nested dataclasses
-    recursed into; anything else, such as the generator, kept; None
-    stays None)."""
+    """``fn`` on every tensor of a dataclass of tensors, or of each of a
+    list of them (nested dataclasses recursed into; anything else, such as
+    the generator, kept; None stays None)."""
     if obj is None:
         return None
+    if isinstance(obj, list):
+        return [_map(fn, o) for o in obj]
     return type(obj)(**{
         k: _map(fn, v) if dataclasses.is_dataclass(v)
         else fn(v) if isinstance(v, torch.Tensor) else v
         for k, v in _fields(obj)})
+
+
+def _each(state):
+    """The tracker states of ``state``: itself, or the batched step's list
+    of them."""
+    return state if isinstance(state, list) else [state]
+
+
+def _with_keys(state, keys):
+    """``state`` (one tracker state or a list) with each one's RANSAC key
+    replaced by the one of ``keys`` in its place (None keeps it)."""
+    new = [st if k is None else st.replace(key=k)
+           for st, k in zip(_each(state), keys)]
+    return new if isinstance(state, list) else new[0]
 
 
 def _select(cond, a, b):
@@ -149,7 +173,8 @@ def _select(cond, a, b):
 
 
 def _copy_into(dst, src):
-    """Copy every tensor of ``src`` into the same field of ``dst``, one
+    """Copy every tensor of ``src`` into the same field of ``dst`` (two
+    dataclasses of tensors, or two lists of them), one
     ``torch._foreach_copy_`` a dtype (nothing when ``dst`` is None). A
     same-dtype ``copy_`` on a card is one ``cudaMemcpyAsync`` a tensor,
     which a capture records as one memcpy node a tensor; the foreach copy
@@ -158,6 +183,10 @@ def _copy_into(dst, src):
     groups = {}
 
     def collect(d, s):
+        if isinstance(d, list):
+            for a, b in zip(d, s):
+                collect(a, b)
+            return
         for k, v in _fields(d):
             if dataclasses.is_dataclass(v):
                 collect(v, getattr(s, k))
@@ -210,10 +239,10 @@ def step_body(st: tracker.TrackerState, sr, x, cfg: VSLAMConfig, mesh=None,
               map_axis: str = "map"):
     """One ``track_step`` alone, with no keyframe insert and no
     maintenance (bench.py's scan body; ``mesh`` / ``map_axis`` as
-    ``track_step`` takes them, for the sharded ``process``, which runs it
-    eagerly). ``sr`` passes through (None: no keyframe store). Returns
-    (state, sr, row, out), ``row`` in ``pack``'s layout, ``out`` the
-    step's ``TrackOutput``."""
+    ``track_step`` takes them, for the sharded ``process``). ``sr``
+    passes through (None: no keyframe store). Returns (state, sr, row,
+    out), ``row`` in ``pack``'s layout, ``out`` the step's
+    ``TrackOutput``."""
     st, out = tracker.track_step(st, x, cfg, mesh=mesh, map_axis=map_axis)
     no = torch.zeros_like(out.success)
     return st, sr, pack(out, no, no), out
@@ -233,7 +262,9 @@ class ChunkGraph:
     ``body(state, store, x) -> (state, store, row, out)`` is ``frame_body``
     or ``step_body`` with its settings bound (``frame_graph``,
     ``step_graph``); one that carries no keyframe store is run with
-    ``store=None``.
+    ``store=None``. ``state`` may also be a list of tracker states, each
+    with a generator of its own (``multi_sequence``'s batched step, which
+    returns no row: ``row`` None).
 
     ``capture`` and ``run`` make the card's
     ``utils.profiling.graph_stream`` the calling thread's current stream
@@ -250,6 +281,15 @@ class ChunkGraph:
     graph_nodes``; the graph keeps its ``cudaGraph_t`` for that): how
     long a replay takes moves with their number (PERF.md §6).
 
+    With ``mesh`` the body's collectives are captured with it (NCCL: the
+    graph forks onto NCCL's stream and joins back); the eager warm-up runs
+    each of them once first, and so creates the NCCL communicator, which
+    PyTorch makes at a group's first collective and a capture cannot.
+    Every rank captures the same body and replays it in the same order.
+    The graph is noted with ``parallel.mesh.keep_captured``, so that
+    ``parallel.multihost.shutdown`` frees it before NCCL's teardown,
+    which waits for it.
+
     Python launch counters count the capture, not the replays:
     ``captured_launches`` holds each kernel's launches in one frame body
     and ``replays`` the frames run, so a run launched each kernel
@@ -263,9 +303,10 @@ class ChunkGraph:
     replays (which a profiler's per-node work inflates).
     """
 
-    def __init__(self, body, span: bool = False):
+    def __init__(self, body, span: bool = False, mesh=None):
         self.body = body
         self.span = span
+        self.mesh = mesh
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.captured_launches: dict = {}
         self.nodes: dict = {}
@@ -276,26 +317,30 @@ class ChunkGraph:
     def _capture(self, state, store, x):
         dev = x.device
         t0 = time.perf_counter()
-        # a generator advances in place, so the warm-up draws from a copy
-        # and the graph from its own registered generator; a Threefry key
-        # is a fixed tensor of the state
-        stream = isinstance(state.key, torch.Generator)
-        warm = state
-        if stream:
-            scratch = torch.Generator(device=dev)
-            scratch.set_state(state.key.get_state())
-            warm = state.replace(key=scratch)
-        self.body(warm, store, x)
+        # a generator advances in place, so the warm-up draws from copies
+        # and the graph from generators of its own, registered with it; a
+        # Threefry key is a fixed tensor of the state
+        self.gens = [torch.Generator(device=dev)
+                     if isinstance(st.key, torch.Generator) else None
+                     for st in _each(state)]
+        scratch = [None if g is None else torch.Generator(device=dev)
+                   for g in self.gens]
+        for sc, st in zip(scratch, _each(state)):
+            if sc is not None:
+                sc.set_state(st.key.get_state())
+        # also every collective's first run (the NCCL communicator)
+        self.body(_with_keys(state, scratch), store, x)
         torch.cuda.synchronize(dev)
 
-        self.gen = torch.Generator(device=dev) if stream else None
-        self.state = _map(torch.clone, state)
+        self.state = _with_keys(_map(torch.clone, state), self.gens)
         self.store = _map(torch.clone, store)
         self.slot = torch.empty_like(x)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        if stream:
-            self.state = self.state.replace(key=self.gen)
-            graph.register_generator_state(self.gen)
+        if self.mesh is not None:
+            keep_captured(graph)
+        for g in self.gens:
+            if g is not None:
+                graph.register_generator_state(g)
         before = (k1.launches, k2.launches)
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -345,8 +390,9 @@ class ChunkGraph:
         rows, out): new state and store and the last frame's
         ``TrackOutput`` (copies, not the static buffers, so no later replay
         overwrites them) and the (T, ROW) float64 rows, still on the
-        device. The replay loop runs with ``set_sync_debug_mode("error")``:
-        a host sync inside it raises."""
+        device (None for a body that returns no row). The replay loop runs
+        with ``set_sync_debug_mode("error")``: a host sync inside it
+        raises."""
         dev = frames.device
         with torch.cuda.device(dev):
             use_graph_stream(dev)
@@ -358,23 +404,28 @@ class ChunkGraph:
                                  f"{tuple(self.slot.shape)}")
             _copy_into(self.state, state)
             _copy_into(self.store, store)
-            if self.gen is not None:
-                self.gen.set_state(state.key.get_state())
-            rows = torch.empty((frames.shape[0], ROW), dtype=torch.float64,
-                               device=dev)
+            keys = [st.key for st in _each(state)]
+            for g, key in zip(self.gens, keys):
+                if g is not None:
+                    g.set_state(key.get_state())
+            rows = None if self.row is None else torch.empty(
+                (frames.shape[0], ROW), dtype=torch.float64, device=dev)
             mode = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:
                 for t in range(frames.shape[0]):
                     self.slot.copy_(frames[t])
                     self.graph.replay()
-                    rows[t].copy_(self.row)
+                    if rows is not None:
+                        rows[t].copy_(self.row)
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
             self.replays += frames.shape[0]
-            if self.gen is not None:
-                state.key.set_state(self.gen.get_state())
-            return (_map(torch.clone, self.state).replace(key=state.key),
+            # each caller's generator advances, as in the eager step
+            for g, key in zip(self.gens, keys):
+                if g is not None:
+                    key.set_state(g.get_state())
+            return (_with_keys(_map(torch.clone, self.state), keys),
                     _map(torch.clone, self.store), rows,
                     tracker.TrackOutput(*map(torch.clone, self.out)))
 
@@ -403,24 +454,27 @@ def run_chunk(state: tracker.TrackerState, store: kf_mod.KeyframeStore,
 
 
 def carried(state: tracker.TrackerState, frames, cfg: VSLAMConfig,
-            graph: Optional[ChunkGraph] = None):
+            graph: Optional[ChunkGraph] = None, mesh=None,
+            map_axis: str = "map"):
     """Track ``frames`` (T, H, W) with ``step_body``, bench.py's carried
     loop: ``graph`` (``step_graph``; a new one when None) replayed on
-    CUDA, a Python loop on the CPU. Returns (state, rows), ``rows`` (T,
-    ROW) float64 on the device."""
-    state, _, rows, _ = _run(functools.partial(step_body, cfg=cfg), state,
-                             None, frames, graph)
+    CUDA, a Python loop on the CPU or with a mesh that cannot be captured.
+    Returns (state, rows), ``rows`` (T, ROW) float64 on the device."""
+    state, _, rows, _ = _run(_step_fn(cfg, mesh, map_axis), state, None,
+                             frames, graph, eager=not _capturable(mesh))
     return state, rows
 
 
 def track_frame(state: tracker.TrackerState, x, cfg: VSLAMConfig,
-                graph: Optional[ChunkGraph] = None):
-    """``step_body`` on one (H, W) image ``x``, as ``carried`` runs a
-    chunk: ``graph`` replayed on CUDA, eager on the CPU. Returns (state,
-    out, row): the step's ``TrackOutput`` (on a card a copy of the graph's
+                graph: Optional[ChunkGraph] = None, mesh=None,
+                map_axis: str = "map"):
+    """``step_body`` on one (H, W) image ``x``: ``graph`` (a ``step_graph``
+    of the same settings) replayed on CUDA; eager without one (the CPU,
+    or a mesh whose collectives cannot be captured). Returns (state, out,
+    row): the step's ``TrackOutput`` (after a replay a copy of the graph's
     outputs) and its (ROW,) float64 row on the device."""
-    state, _, rows, out = _run(functools.partial(step_body, cfg=cfg), state,
-                               None, x[None], graph)
+    state, _, rows, out = _run(_step_fn(cfg, mesh, map_axis), state, None,
+                               x[None], graph, eager=graph is None)
     return state, out, rows[0]
 
 
@@ -430,9 +484,23 @@ def frame_graph(cfg: VSLAMConfig, high_water: int, min_free: int,
     return ChunkGraph(_frame_fn(cfg, high_water, min_free, render_fn))
 
 
-def step_graph(cfg: VSLAMConfig, span: bool = False) -> ChunkGraph:
-    """A ``ChunkGraph`` of ``step_body``."""
-    return ChunkGraph(functools.partial(step_body, cfg=cfg), span)
+def step_graph(cfg: VSLAMConfig, span: bool = False, mesh=None,
+               map_axis: str = "map") -> ChunkGraph:
+    """A ``ChunkGraph`` of ``step_body`` (with ``mesh``: the sharded step
+    and its collectives, which must be capturable)."""
+    if not _capturable(mesh):
+        raise ValueError("step_graph: the mesh's collectives cannot be "
+                         "captured (parallel.mesh.capturable)")
+    return ChunkGraph(_step_fn(cfg, mesh, map_axis), span, mesh)
+
+
+def _capturable(mesh) -> bool:
+    return mesh is None or capturable(mesh)
+
+
+def _step_fn(cfg, mesh, map_axis):
+    return functools.partial(step_body, cfg=cfg, mesh=mesh,
+                             map_axis=map_axis)
 
 
 def _frame_fn(cfg, high_water, min_free, render_fn):
@@ -440,15 +508,15 @@ def _frame_fn(cfg, high_water, min_free, render_fn):
                              min_free=min_free, render_fn=render_fn)
 
 
-def _run(body, state, store, frames, graph):
+def _run(body, state, store, frames, graph, eager: bool = False):
     """``body`` over ``frames``: ``graph`` (``ChunkGraph(body)`` when None)
-    on CUDA, a Python loop on the CPU. Returns (state, store, rows, the
-    last frame's out)."""
+    on CUDA, a Python loop on the CPU or with ``eager``. Returns (state,
+    store, rows, the last frame's out)."""
     dev = state.pose.device
-    if dev.type == "cuda":
-        return (graph or ChunkGraph(body)).run(state, store, frames)
-    if dev.type != "cpu":
+    if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and not eager:
+        return (graph or ChunkGraph(body)).run(state, store, frames)
     rows = []
     for t in range(frames.shape[0]):
         state, store, row, out = body(state, store, frames[t])

@@ -19,18 +19,26 @@ structure refinement one captured ``solve_robust`` per event
 (``_solve_robust``). The host's decisions and writes (keyframes, BA's
 guards, maintenance) run eagerly between replays; the state is copied
 into the graph at every call. A capture or replay that fails raises:
-nothing falls back to the eager step. ``track_step`` with a mesh and
-global BA run eagerly, and the CPU runs everything eagerly.
+nothing falls back to the eager step. Global BA runs eagerly (once a
+run, at a shape that depends on the run), and the CPU runs everything
+eagerly.
 
 With a mesh (``parallel.mesh.make_mesh``) every rank runs this same loop
-and holds its block of the map (BASELINE config 4): each step goes through
+and holds its block of the map (BASELINE config 4): each step is
 ``track_step(mesh=)``, and every host decision reads replicated values, so
-all ranks take the same branches. Maintenance, the window problems, their
-write-back, ``snapshot`` and checkpoints need the whole map: they gather it
-(``sharded_map.gather_map_state``), run the single-device function on
-every rank (stable sorts make it deterministic) and shard the result
-again. That moves the whole map once per event, about 30 MB at the default
-131072 slots x 4 descriptors (``pt`` 12.6 MB, ``desc`` 16.8 MB).
+all ranks take the same branches. On an NCCL mesh the step graph holds
+the sharded step and its collectives; on a gloo mesh, whose collectives
+cannot be captured (``parallel.mesh.capturable``), the step runs eagerly
+(``step_graph`` is None), decided at construction. NCCL's teardown
+(``destroy_process_group``) waits for every graph that captured its
+collectives, so a rank leaves the group through
+``parallel.multihost.shutdown``, which frees them first. Maintenance, the
+window problems, their write-back, ``snapshot`` and checkpoints need the
+whole map: they gather it (``sharded_map.gather_map_state``), run the
+single-device function on every rank (stable sorts make it
+deterministic) and shard the result again. That moves the whole map once
+per event, about 30 MB at the default 131072 slots x 4 descriptors
+(``pt`` 12.6 MB, ``desc`` 16.8 MB).
 """
 from __future__ import annotations
 
@@ -45,7 +53,7 @@ from ..config import VSLAMConfig
 from ..mapping import point_map
 from ..optimizer import ba
 from ..parallel import sharded_map
-from ..parallel.mesh import axis_size
+from ..parallel.mesh import axis_size, capturable
 from ..utils.metrics import MetricsLogger
 from ..utils.profiling import capture, use_graph_stream
 from . import keyframes, scan_driver, tracker
@@ -169,12 +177,14 @@ class SLAMSystem:
         self._maint_min_free = max(cap // 8, headroom + max(cap // 16, 1))
         self.dropped_inserts_total = 0
         self.maintenance_runs = 0
-        # on a card: process's captured step (not with a mesh: its
-        # collectives run eagerly), process_chunk's captured frame bodies
-        # by render_fn, the window solves' graphs by _solve_robust's key
-        self.step_graph = (scan_driver.step_graph(cfg)
-                           if self.device.type == "cuda" and mesh is None
-                           else None)
+        # on a card: process's captured step (with a mesh, one whose
+        # collectives can be captured), process_chunk's captured frame
+        # bodies by render_fn, the window solves' graphs by _solve_robust's
+        # key
+        self.step_graph = (
+            scan_driver.step_graph(cfg, mesh=mesh, map_axis=self._map_axis)
+            if self.device.type == "cuda"
+            and (mesh is None or capturable(mesh)) else None)
         self.chunk_graphs: Dict = {}
         self.ba_graphs: Dict = {}
 
@@ -183,7 +193,8 @@ class SLAMSystem:
         """Feed one grayscale frame (H, W) float32 in [0, 1] (numpy or a
         tensor; a tensor already on the system's device is not copied).
 
-        On a card the step is ``step_graph``'s replay: captured at the
+        On a card the step is ``step_graph``'s replay (with a mesh too,
+        unless its collectives cannot be captured): captured at the
         bootstrap frame (or, for a system restored by
         ``utils.checkpoint.load_state``, at its first tracked frame), whose
         info then holds the warm-up and capture's seconds as
@@ -208,13 +219,9 @@ class SLAMSystem:
             return info
 
         fresh = g is not None and g.graph is None
-        if self.mesh is None:
-            self.state, out, row = scan_driver.track_frame(
-                self.state, img, self.cfg, g)
-        else:
-            self.state, _, row, out = scan_driver.step_body(
-                self.state, None, img, self.cfg, mesh=self.mesh,
-                map_axis=self._map_axis)
+        self.state, out, row = scan_driver.track_frame(
+            self.state, img, self.cfg, g, mesh=self.mesh,
+            map_axis=self._map_axis)
         self.last_output = out
         # one device->host transfer: the pose and every counter
         sc = scan_driver.ChunkScalars.unpack(_np(row)[None])

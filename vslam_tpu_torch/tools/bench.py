@@ -62,6 +62,7 @@ import torch
 from ..config import VSLAMConfig
 from ..datasets import synthetic
 from ..mapping import point_map
+from ..parallel import sharded_map
 from ..pipeline import scan_driver, tracker
 from ..utils import threefry
 from ..utils.profiling import (clocks, device_record, synchronize,
@@ -211,27 +212,34 @@ def sequence(device, cfg: VSLAMConfig, seed: int, traj_seed: int,
 
 def capture_modes(device, captures: int, seed: int = 17,
                   n_map: int = FILLS["map51k"], replays: int = 24,
-                  cfg: Optional[VSLAMConfig] = None) -> list:
+                  cfg: Optional[VSLAMConfig] = None, mesh=None) -> list:
     """Read the mode of ``captures`` fresh captures of the carried step
     (``scan_driver.step_graph(span=True)``) on a card: bench's scene of
     ``seed``, a live map of ``n_map`` points, ``replays`` frames replayed
     one by one from the same state and RANSAC draws for each capture.
-    Returns one dict per capture: ``nodes`` (the graph's nodes by type),
-    ``capture_s``, ``span_ms`` (each replay's device ms, CUDA events inside
-    the graph) and their ``median_ms``."""
+    With ``mesh`` (capturable, carrying ``cfg.mesh.axis_map``) the step is
+    the sharded one, on this rank's block of that map. Returns one dict
+    per capture: ``nodes`` (the graph's nodes by type), ``capture_s``,
+    ``span_ms`` (each replay's device ms, CUDA events inside the graph)
+    and their ``median_ms``."""
     use_graph_stream(device)
     cfg = cfg or VSLAMConfig()
+    axis = cfg.mesh.axis_map
     state, frames = sequence(device, cfg, seed, seed, replays + 1)
     state = prepopulate(state, n_map, seed)
+    if mesh is not None:
+        state = state.replace(map=sharded_map.shard_map_state(
+            mesh, axis, state.map))
     draws = state.key.get_state()
     out = []
     for _ in range(captures):
-        g = scan_driver.step_graph(cfg, span=True)
+        g = scan_driver.step_graph(cfg, span=True, mesh=mesh, map_axis=axis)
         spans = []
         state.key.set_state(draws)
         s = state
         for t in range(replays):
-            s, rows = scan_driver.carried(s, frames[t:t + 1], cfg, g)
+            s, rows = scan_driver.carried(s, frames[t:t + 1], cfg, g,
+                                          mesh=mesh, map_axis=axis)
             rows.cpu()
             spans.append(g.span_ms())
         out.append(dict(nodes=g.nodes, capture_s=g.capture_s,

@@ -199,11 +199,7 @@ def _libcuda():
     return cu
 
 
-def graph_nodes(graph: "torch.cuda.CUDAGraph") -> Dict[str, int]:
-    """{node type: count} of a graph captured with ``keep_graph=True``
-    ("kernel", "memcpy", "memset", "event_record", ...), read from the CUDA
-    driver (``cuGraphGetNodes``, ``cuGraphNodeGetType``) on its
-    ``cudaGraph_t``."""
+def _graph_node_list(graph: "torch.cuda.CUDAGraph"):
     cu = _libcuda()
     raw = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
@@ -213,15 +209,69 @@ def graph_nodes(graph: "torch.cuda.CUDAGraph") -> Dict[str, int]:
         err = cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n))
     if err:
         raise RuntimeError(f"cuGraphGetNodes failed: CUresult {err}")
+    return nodes
+
+
+def graph_nodes(graph: "torch.cuda.CUDAGraph") -> Dict[str, int]:
+    """{node type: count} of a graph captured with ``keep_graph=True``
+    ("kernel", "memcpy", "memset", "event_record", ...), read from the CUDA
+    driver (``cuGraphGetNodes``, ``cuGraphNodeGetType``) on its
+    ``cudaGraph_t``."""
+    cu = _libcuda()
     out: Dict[str, int] = {}
     kind = ctypes.c_int(0)
-    for node in nodes:
+    for node in _graph_node_list(graph):
         err = cu.cuGraphNodeGetType(node, ctypes.byref(kind))
         if err:
             raise RuntimeError(f"cuGraphNodeGetType failed: CUresult {err}")
         name = NODE_TYPES[kind.value] if kind.value < len(NODE_TYPES) \
             else str(kind.value)
         out[name] = out.get(name, 0) + 1
+    return out
+
+
+# CUDA_KERNEL_NODE_PARAMS_v2: func at 0, kern (a CUkernel) at 56
+_KERNEL_PARAMS_BYTES, _KERN_OFFSET = 128, 56
+
+
+def graph_kernels(graph: "torch.cuda.CUDAGraph") -> Dict[str, int]:
+    """{kernel name: count} of the kernel nodes of a graph captured with
+    ``keep_graph=True`` (mangled names, as the driver gives them:
+    ``cuGraphKernelNodeGetParams_v2``, then ``cuFuncGetName`` or
+    ``cuKernelGetName``). Needs a driver of CUDA 12 or later, whose
+    ``_v2`` parameters this reads; raises on an older one."""
+    cu = _libcuda()
+    get = getattr(cu, "cuGraphKernelNodeGetParams_v2", None)
+    if get is None:
+        raise RuntimeError("graph_kernels: the CUDA driver has no "
+                           "cuGraphKernelNodeGetParams_v2")
+    get.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    name = ctypes.c_char_p()
+    kind = ctypes.c_int(0)
+    out: Dict[str, int] = {}
+    for node in _graph_node_list(graph):
+        err = cu.cuGraphNodeGetType(node, ctypes.byref(kind))
+        if err:
+            raise RuntimeError(f"cuGraphNodeGetType failed: CUresult {err}")
+        if kind.value != 0:
+            continue
+        buf = ctypes.create_string_buffer(_KERNEL_PARAMS_BYTES)
+        err = get(node, buf)
+        if err:
+            raise RuntimeError(f"cuGraphKernelNodeGetParams failed: "
+                               f"CUresult {err}")
+        func = ctypes.c_void_p.from_buffer(buf).value
+        if func:
+            err = cu.cuFuncGetName(ctypes.byref(name), ctypes.c_void_p(func))
+        else:
+            kern = ctypes.c_void_p.from_buffer(buf, _KERN_OFFSET).value
+            err = cu.cuKernelGetName(ctypes.byref(name),
+                                     ctypes.c_void_p(kern))
+        if err:
+            raise RuntimeError(f"reading a kernel node's name failed: "
+                               f"CUresult {err}")
+        k = name.value.decode()
+        out[k] = out.get(k, 0) + 1
     return out
 
 
