@@ -23,10 +23,15 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
      config, the same injected RANSAC samples, per-frame tolerances;
   6. the tracking step: bootstrap + 11 ``track_step`` of the default config
      (1248x384, 3072 keypoints, 1024 hypotheses, map capacity 131072) on
-     CUDA, after a warm-up. Launch counters are reset just before and read
-     just after; the steps must not synchronize with the host; at least 80%
-     of frames must succeed, the median inlier count must exceed 50 and the
-     map must grow. Prints ms/frame.
+     CUDA, called directly, after a warm-up: each call replays the step
+     graph ``utils.jit`` caches (captured in the warm-up; K1 and K2
+     launches read as captured times replays, reset just before and read
+     just after), then the same 11 steps eager (``utils.jit.disable_jit``),
+     which must not synchronize with the host. Both runs bit-equal, the
+     cached frame under a quarter of the eager one; at least 80% of frames
+     must succeed, the median inlier count must exceed 50 and the map must
+     grow. Prints both ms/frame and the cached replay's device ms, which
+     17a holds to its own replays;
   7. map maintenance (``evict_lru``, ``compact``, ``remap_ids``) on phase
      4's map, CUDA against the CPU, exact;
   8. the main path: ``SLAMSystem.process`` of the default config over 31
@@ -45,10 +50,13 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
   9. the full-width window BA problem (20 cameras x 8192 points x 16
      observation slots) solved on CUDA and on the CPU: costs within 1e-4
      (initial) and 1e-3 (final) relative, equal accept flags; the system's
-     captured ``solve_robust`` bit-equal to the eager one where two eager
-     solves are bit-equal (else within those bounds). Prints ms per solve
-     and per LM iteration, window and global, and the captured window
-     ``solve_robust`` beside the eager one (CUDA events), and a window-BA
+     captured ``solve_robust`` bit-equal to the eager one
+     (``utils.jit.disable_jit``) where two eager solves are bit-equal
+     (else within those bounds), and ``ba.solve_robust`` called directly
+     (``utils.jit``'s cached graph) bit-equal to the system's. Prints ms
+     per solve and per LM iteration, window and global (eager), and the
+     captured window ``solve_robust``, the system's and the direct call's,
+     beside the eager one (CUDA events), and a window-BA
      event's parts (build, gate statistics, solve, guards, the whole
      ``_run_window_ba``) on the host clock;
  10. the bounded-map scenario of tests/test_map_lifecycle.py on CUDA
@@ -106,10 +114,12 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
      single-device solve with phase 9's bounds; (c)
      ``parallel.multi_sequence`` on the same two ranks over two
      full-width sequences of 4 frames, equal to their individual runs
-     (gloo: eager); (d) ``multi_sequence`` on one NCCL rank over the same
-     two sequences, ``batched_track_step`` replaying its graph (both
-     steps and the gather) bit-equal to the same steps eager, with ms per
-     batched step;
+     (direct ``track_step``s; on gloo the batched step is eager around
+     its sequences' steps, which replay ``utils.jit``'s cached graph); (d)
+     ``multi_sequence`` on one NCCL rank over the same two sequences,
+     ``batched_track_step`` replaying its graph (both steps and the
+     gather) bit-equal to the same steps eager (``disable_jit``), with ms
+     per batched step;
  15. endurance (``vslam_tpu_torch.tools``): (a) ``endurance_device`` at
      full width, 220 frames pre-rendered on the card, ``process_chunk`` in
      chunks of 25, then global BA, held to the reference's asserts
@@ -129,12 +139,16 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
      mean BA-off ATE + 1e-3 (each stream's ratio to its own BA-off run is
      printed: that run's ATE moves with f32 threshold flips);
  16. BA (``tools.bench_ba``): the 20 x 8192 x 16 problem, LM iterations/s
-     of both Schur assemblies, final costs within 1e-3 relative and equal
-     accept flags but for a rounding tie once converged, the four-stage
-     split of one LM iteration in device ms (one captured graph) and host
-     ms (eager); one KITTI-scale race (256 x 65536 x 8) at base_iters=4
-     with its peak device memory, then five more at base_iters=8: each
-     assembly's median, min and max LM iterations/s;
+     of both Schur assemblies with ``ba.solve`` replaying its cached
+     graph (``utils.jit``) and eager (``disable_jit``), each assembly's
+     captured costs and accept flags equal to its eager ones (scatter's
+     atomics: within 1e-3 and equal flags but for a tie), the assemblies'
+     final costs within 1e-3 relative and equal accept flags but for a
+     rounding tie once converged, the four-stage split of one LM
+     iteration in device ms (one captured graph) and host ms (eager); one
+     KITTI-scale race (256 x 65536 x 8) at base_iters=4, captured, with
+     the peak device memory of its captured solves, then five more at
+     base_iters=8: each assembly's median, min and max LM iterations/s;
  17. the steady-state benchmark and the step's profile: (a)
      ``tools.bench`` at full width (seed 17, ``n_timed`` 40): the carried
      ``track_step`` as one CUDA graph replayed per frame at live maps of
@@ -142,7 +156,9 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
      no host sync inside the replay loop (``"error"`` mode), K1 and K2
      captured once per step body; prints each segment's frames/s, replay
      device ms (CUDA events), clocks before and after, and the JSON line;
-     (b) ``ops.profile_step`` over 6 replays at map 51200 under
+     then phase 6's cached replay held to its replays: one mode, the
+     slowest of the four device ms within 3% of the fastest; (b)
+     ``ops.profile_step`` over 6 replays at map 51200 under
      ``torch.profiler``: kernel events in the trace, K1 and K2 once per
      frame, the kernels' total within 0.95-1.10 of the replays' device
      ms (CUDA events inside the graph, the same frames run untraced just
@@ -151,14 +167,18 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
      count; (c) 8 fresh captures of the carried step at map 51200 (6
      here, 2 in spawned processes), each one's nodes by type (equal in
      all) and median replay device ms over 24 replays: one mode, the
-     slowest median within 3% of the fastest. No phase sets a stream, as
-     a user's program need not: the first graph run moves the thread onto
-     the card's graph stream (``utils.profiling.use_graph_stream``).
+     slowest median within 3% of the fastest, 2 of them in spawned
+     processes that start on the default stream and leave the switch to
+     the package. This process itself moves onto the card's graph stream
+     (``utils.profiling.use_graph_stream``) before phase 3, because its
+     kernel checks are work of its own on the card before the package's
+     first entry point (README, trap w).
 
 Each phase prints its seconds. The line before the last but one is one
 JSON object per kernel (route, source, the TPU kernel it replaces, launches
 on the main path of phase 8 (captured launches times replays), on the
-tracking step of phase 6, in phase 11's chunks, in phase 13's two runs
+tracking step of phase 6 (its cached graph's, likewise), in phase 11's
+chunks, in phase 13's two runs
 (each captured launches times replays), on phase 14a's sharded path
 and in phase 14d's batched steps, in phase 15a's endurance run and in
 phase 17a's bench (each captured launches times replays), max |error|
@@ -625,12 +645,28 @@ def check_step_vs_cpu(torch, dev, failures):
           f"{worst:.2e}")
 
 
+def _outs_differ(torch, a, b):
+    """(frame, field) of two runs' ``TrackOutput``s that differ."""
+    return [(i, k) for i, (x, y) in enumerate(zip(a, b), 1)
+            for k, u, v in zip(x._fields, x, y) if not torch.equal(u, v)]
+
+
 def run_main_path(torch, dev, failures):
+    """Phase 6: bootstrap + 11 ``track_step``s of the default config called
+    directly, as a user's loop calls them: on the card each call replays
+    the step graph ``utils.jit`` caches (captured in the warm-up; K1 and
+    K2 launches read as captured times replays, the wrappers' counters
+    must not move), then the same 11 steps eager
+    (``utils.jit.disable_jit``) with the host-sync check on them. Both
+    runs' outputs and final states must be bit-equal, and the cached
+    frame must take under a quarter of the eager one. Prints both
+    ms/frame (host clock, synchronized) and the cached replay's device
+    ms (CUDA events inside the graph). Returns (launches, record)."""
     from vslam_tpu_torch.config import VSLAMConfig
     from vslam_tpu_torch.ops import associate as k2
     from vslam_tpu_torch.ops import hamming
     from vslam_tpu_torch.pipeline import tracker
-    from vslam_tpu_torch.utils import evaluate
+    from vslam_tpu_torch.utils import evaluate, jit
 
     cfg = VSLAMConfig()
     n_frames = 12
@@ -640,31 +676,58 @@ def run_main_path(torch, dev, failures):
     print(f"rendered {n_frames} frames of {cfg.camera.width}x"
           f"{cfg.camera.height} in {time.perf_counter() - t0:.1f} s")
 
-    # warm-up: first-call costs (cuBLAS handles, allocator) off the clock
+    # warm-up, off the clock: the cached graph's capture, and the eager
+    # step's first-use costs (cuBLAS handles, allocator)
+    t0 = time.perf_counter()
     st = tracker.bootstrap(frames[0], cfg, dev)
     for i in range(1, 3):
         st, _ = tracker.track_step(st, frames[i], cfg)
     torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    with jit.disable_jit():
+        st = tracker.bootstrap(frames[0], cfg, dev)
+        for i in range(1, 3):
+            st, _ = tracker.track_step(st, frames[i], cfg)
+    torch.cuda.synchronize()
+    (g,) = [v for k, v in jit.cache().items() if k[0] is tracker.track_step]
+
+    def steps(warn=False):
+        st = tracker.bootstrap(frames[0], cfg, dev)
+        torch.cuda.synchronize()
+        if warn:
+            torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        outs = []
+        try:
+            for i in range(1, n_frames):
+                st, out = tracker.track_step(st, frames[i], cfg)
+                outs.append(out)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        return st, outs, 1e3 * (time.perf_counter() - t0) / (n_frames - 1)
 
     hamming.launches = 0
     k2.launches = 0
-    outs = []
-    with warnings.catch_warnings(record=True) as caught:
+    replays0 = g.replays
+    st, outs, ms_frame = steps()
+    replay_ms = g.span_ms()
+    counted = {"hamming": hamming.launches, "associate": k2.launches}
+    replays = g.replays - replays0
+    launches = {k: v * replays for k, v in g.captured_launches.items()}
+
+    hamming.launches = 0
+    k2.launches = 0
+    with warnings.catch_warnings(record=True) as caught, jit.disable_jit():
         warnings.simplefilter("always")
-        st = tracker.bootstrap(frames[0], cfg, dev)
-        torch.cuda.synchronize()
-        torch.cuda.set_sync_debug_mode("warn")
-        t0 = time.perf_counter()
-        for i in range(1, n_frames):
-            st, out = tracker.track_step(st, frames[i], cfg)
-            outs.append(out)
-        torch.cuda.set_sync_debug_mode("default")
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-    launches = {"hamming": hamming.launches, "associate": k2.launches}
+        st_e, eager, ms_eager = steps(warn=True)
+    eager_launches = {"hamming": hamming.launches, "associate": k2.launches}
     syncs = sorted({f"{w.filename}:{w.lineno}: {w.message}" for w in caught
                     if "called a synchronizing" in str(w.message)})
-    ms_frame = 1e3 * dt / (n_frames - 1)
+    differs = _outs_differ(torch, outs, eager) + [
+        path for (path, a), (_, b) in zip(_tensors(st, "state"),
+                                          _tensors(st_e, "state"))
+        if not torch.equal(a, b)]
 
     ok = np.array([bool(o.success) for o in outs])
     inl = np.array([int(o.num_inliers) for o in outs])
@@ -672,14 +735,30 @@ def run_main_path(torch, dev, failures):
     est = np.stack([np.eye(4, dtype=np.float32)]
                    + [o.pose.cpu().numpy() for o in outs])
     ate = evaluate.ate_rmse(est, poses.astype(np.float64))[0]
-    print(f"main path: {n_frames - 1} steps, {ms_frame:.2f} ms/frame "
-          f"(host clock, synchronized), success {int(ok.sum())}/{len(ok)}, "
+    print(f"main path: {n_frames - 1} direct track_steps, cached graph "
+          f"{ms_frame:.3f} ms/frame, eager (disable_jit) {ms_eager:.3f} "
+          f"ms/frame (host clock, synchronized; ratio "
+          f"{ms_frame / ms_eager:.4f}); the cached replay {replay_ms:.3f} "
+          f"device ms (span); graph captured in the warm-up "
+          f"({capture_s:.2f} s for bootstrap + 2 steps), replays "
+          f"{replays}, nodes {g.nodes}; success {int(ok.sum())}/{len(ok)}, "
           f"median inliers {int(np.median(inl))}, map {sizes[0]} -> "
-          f"{sizes[-1]}, ATE {ate:.4f}, launches {launches}")
+          f"{sizes[-1]}, ATE {ate:.4f}; launches {launches} (captured x "
+          f"replays; wrapper counters {counted}), eager {eager_launches}; "
+          f"cached bit-equal to eager {not differs} {differs[:8]}")
     for s in syncs:
         print(f"host sync inside the step: {s}")
     if syncs:
         failures.append(f"{len(syncs)} host-sync sites inside track_step")
+    if differs:
+        failures.append(f"phase 6: the cached track_step differs from the "
+                        f"eager one: {differs[:8]}")
+    if replays != n_frames - 1 or any(counted.values()):
+        failures.append(f"phase 6: {replays} replays, wrapper counters "
+                        f"{counted} during the cached run")
+    if not ms_frame < 0.25 * ms_eager:
+        failures.append(f"phase 6: cached {ms_frame:.3f} ms/frame not under "
+                        f"a quarter of eager {ms_eager:.3f}")
     if ok.mean() < 0.8:
         failures.append(f"only {int(ok.sum())}/{len(ok)} frames succeeded")
     if not np.median(inl) > 50:
@@ -688,11 +767,13 @@ def run_main_path(torch, dev, failures):
         failures.append(f"map did not grow: {sizes}")
     if not np.isfinite(est).all() or not ate < 0.5:
         failures.append(f"trajectory off: ATE {ate}")
-    for name, n in launches.items():
-        if n < n_frames - 1:
-            failures.append(f"{name} kernel launched {n} times in "
-                            f"{n_frames - 1} steps")
-    return launches, ms_frame
+    for name in launches:
+        if min(launches[name], eager_launches[name]) < n_frames - 1:
+            failures.append(f"{name} kernel launched {launches[name]} "
+                            f"(cached) / {eager_launches[name]} (eager) "
+                            f"times in {n_frames - 1} steps")
+    return launches, dict(ms_frame=ms_frame, ms_eager=ms_eager,
+                          replay_ms=replay_ms)
 
 
 def check_lifecycle(torch, dev, m, failures):
@@ -1006,13 +1087,16 @@ def check_ba(torch, dev, s, failures):
     from vslam_tpu_torch.optimizer import ba
     from vslam_tpu_torch.pipeline import keyframes
 
+    from vslam_tpu_torch.utils import jit
+
     cfg = s.cfg
     wp = keyframes.build_window_problem(
         s.kf_store, s.state.map, cfg, free_tail=cfg.ba.free_cams,
         prov_min_obs=99)
     p = wp.problem
     Kd = s._K
-    got_p, got = ba.solve_robust(p, Kd, cfg.ba, reject_px=5.0, rounds=2)
+    with jit.disable_jit():
+        got_p, got = ba.solve_robust(p, Kd, cfg.ba, reject_px=5.0, rounds=2)
     t0 = time.perf_counter()
     want_p, want = ba.solve_robust(_moved(p, "cpu"), Kd.cpu(), cfg.ba,
                                    reject_px=5.0, rounds=2)
@@ -1037,14 +1121,25 @@ def check_ba(torch, dev, s, failures):
     if not gf < gi:
         failures.append(f"window BA did not reduce its cost: {gi} -> {gf}")
 
-    again_p, again = ba.solve_robust(p, Kd, cfg.ba, reject_px=5.0, rounds=2)
+    with jit.disable_jit():
+        again_p, again = ba.solve_robust(p, Kd, cfg.ba, reject_px=5.0,
+                                         rounds=2)
     graph_p, graph = s._solve_robust(p, cfg.ba, reject_px=5.0, rounds=2)
+    direct_p, direct = ba.solve_robust(p, Kd, cfg.ba, reject_px=5.0,
+                                       rounds=2)
     eager_eq = _same_solve(torch, again_p, again, got_p, got)
     graph_eq = _same_solve(torch, graph_p, graph, got_p, got)
     hi, hf = float(graph.initial_cost), float(graph.final_cost)
     print(f"window BA on CUDA: two eager solve_robust bit-equal {eager_eq}; "
           f"the captured solve bit-equal to the eager one {graph_eq} (cost "
           f"{hi:.4f} -> {hf:.4f}, accepted {graph.accepted.cpu().tolist()})")
+    direct_eq = _same_solve(torch, direct_p, direct, graph_p, graph)
+    print(f"window BA: ba.solve_robust called directly (utils.jit's "
+          f"cached graph) bit-equal to the system's captured solve "
+          f"{direct_eq}")
+    if not direct_eq:
+        failures.append("window BA: the direct solve_robust's cached graph "
+                        "differs from the system's")
     if eager_eq and not graph_eq:
         failures.append("window BA: the captured solve differs from the "
                         "eager one, which repeats bit for bit")
@@ -1055,11 +1150,14 @@ def check_ba(torch, dev, s, failures):
                         f"{gi} -> {gf}")
 
     it = cfg.ba.iterations
-    ms_solve = _time_ms(torch, lambda: ba.solve(p, Kd, cfg.ba), reps=3)
-    ms_robust = _time_ms(torch, lambda: ba.solve_robust(
-        p, Kd, cfg.ba, reject_px=5.0, rounds=2), reps=3)
+    with jit.disable_jit():
+        ms_solve = _time_ms(torch, lambda: ba.solve(p, Kd, cfg.ba), reps=3)
+        ms_robust = _time_ms(torch, lambda: ba.solve_robust(
+            p, Kd, cfg.ba, reject_px=5.0, rounds=2), reps=3)
     ms_graph = _time_ms(torch, lambda: s._solve_robust(
         p, cfg.ba, reject_px=5.0, rounds=2), reps=3)
+    ms_direct = _time_ms(torch, lambda: ba.solve_robust(
+        p, Kd, cfg.ba, reject_px=5.0, rounds=2), reps=3)
     (bag,) = s.ba_graphs.values()
     ms_replay = _time_ms(torch, bag.graph.replay, reps=10)
     ms_build = _time_ms(torch, lambda: keyframes.build_window_problem(
@@ -1069,7 +1167,8 @@ def check_ba(torch, dev, s, failures):
           f"({ms_solve / it:.3f} ms/iteration, {it} iterations), "
           f"solve_robust (2 rounds) eager {ms_robust:.2f} ms, captured "
           f"{ms_graph:.2f} ms (copies in and out included; the replay "
-          f"alone {ms_replay:.3f} ms); the window problem's build (eager) "
+          f"alone {ms_replay:.3f} ms), called directly (utils.jit) "
+          f"{ms_direct:.2f} ms; the window problem's build (eager) "
           f"{ms_build:.2f} ms (CUDA events)")
 
     cov = s.last_global_ba_coverage
@@ -1079,7 +1178,8 @@ def check_ba(torch, dev, s, failures):
         s.kf_store, s.state.map, cfg.replace(ba=gcfg),
         window=s.kf_store.ring_size, max_points=cov["max_points"])
     gp = gwp.problem
-    ms_g = _time_ms(torch, lambda: ba.solve(gp, Kd, gcfg), reps=3)
+    with jit.disable_jit():                 # global BA is eager
+        ms_g = _time_ms(torch, lambda: ba.solve(gp, Kd, gcfg), reps=3)
     Cg, Pg, Kg = gp.num_cams, *gp.obs_cam.shape
     assembly = "onehot" if Cg <= gcfg.onehot_max_cams else "scatter"
     print(f"global BA {Cg}x{Pg}x{Kg} ({assembly} assembly) on CUDA: "
@@ -1092,6 +1192,7 @@ def check_ba(torch, dev, s, failures):
           "run: " + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
     return dict(window_ms_solve=ms_solve, window_ms_iter=ms_solve / it,
                 window_ms_robust=ms_robust, window_ms_robust_graph=ms_graph,
+                window_ms_robust_direct=ms_direct,
                 window_ms_replay=ms_replay, window_ms_build=ms_build,
                 window_event_ms=split["event"], global_ms_solve=ms_g,
                 global_ms_iter=ms_g / it), p
@@ -1637,6 +1738,7 @@ def run_multi_sequence_one_rank(torch, dev, failures):
     from vslam_tpu_torch.ops import hamming
     from vslam_tpu_torch.parallel import mesh as mesh_mod
     from vslam_tpu_torch.parallel import multi_sequence
+    from vslam_tpu_torch.utils import jit
 
     cfg = VSLAMConfig()
     dmesh = mesh_mod.make_mesh("data", 1)
@@ -1659,7 +1761,8 @@ def run_multi_sequence_one_rank(torch, dev, failures):
 
     boot = lambda: multi_sequence.batched_bootstrap(
         seqs[:, 0], cfg, dmesh, "data", seeds=seeds, device=dev)
-    eager, e_outs, e_wall = run(dataclasses.replace(boot(), graph=None))
+    with jit.disable_jit():     # no graph of the batch, none of a step
+        eager, e_outs, e_wall = run(dataclasses.replace(boot(), graph=None))
     bst = boot()
     hamming.launches = 0
     k2.launches = 0
@@ -2222,23 +2325,49 @@ def run_endurance(torch, dev, failures):
 
 def run_bench_ba(torch, dev, failures):
     """Phase 16, BA on the card (``tools.bench_ba``): the 20 x 8192 x 16
-    problem, both Schur assemblies' LM iterations/s, their final costs
-    within 1e-3 relative with equal accept flags (but for a rounding tie
-    of the converged solve, ``bench_ba.path_disagreement``), the winner's
-    four-stage
-    split (device ms from one captured graph, host ms eager); then one
-    KITTI-scale race (256 x 65536 x 8) at base_iters=4 and its peak device
-    memory, and five more at base_iters=8 for the rates' median and
-    spread."""
+    problem, both Schur assemblies' LM iterations/s with ``ba.solve``
+    replaying its cached graph (``utils.jit``, as the reference times a
+    jitted solve) and eager (``utils.jit.disable_jit``), beside each
+    other; each assembly's captured costs and accept flags equal to its
+    eager ones (bit for bit for one-hot; scatter's float atomics add in
+    no fixed order, so there within 1e-3 relative and equal flags but for
+    a rounding tie, ``bench_ba.path_disagreement``); the assemblies'
+    final costs within 1e-3 relative with equal accept flags (but for a
+    rounding tie of the converged solve); the winner's four-stage split
+    (device ms from one captured graph, host ms eager); then one
+    KITTI-scale race (256 x 65536 x 8) at base_iters=4, captured, and the
+    peak device memory of its captured solves, and five more at
+    base_iters=8 for the rates' median and spread."""
     from vslam_tpu_torch.tools import bench_ba
+    from vslam_tpu_torch.utils import jit
 
     problem, K = bench_ba.make_problem(device=dev)
     race = bench_ba.race_assemblies(problem, K)
+    with jit.disable_jit():
+        eager = bench_ba.race_assemblies(problem, K)
     for a, r in race.items():
-        print(f"16 BA 20x8192x16 {a}: {r['lm_iterations_per_sec']} LM "
-              f"iterations/s ({1e3 * r['sec_per_lm_iteration']:.3f} "
-              f"ms/iteration), cost {r['initial_cost']:.2f} -> "
-              f"{r['final_cost']:.4f}, accepted {r['accepted']}")
+        e = eager[a]
+        print(f"16 BA 20x8192x16 {a}: captured {r['lm_iterations_per_sec']} "
+              f"LM iterations/s ({1e3 * r['sec_per_lm_iteration']:.3f} "
+              f"ms/iteration), eager (disable_jit) "
+              f"{e['lm_iterations_per_sec']} "
+              f"({1e3 * e['sec_per_lm_iteration']:.3f}); cost "
+              f"{r['initial_cost']:.2f} -> {r['final_cost']:.4f} (eager "
+              f"{e['final_cost']:.4f}), accepted {r['accepted']}")
+        same = all(r[k] == e[k] for k in ("initial_cost", "final_cost",
+                                          "costs", "accepted"))
+        print(f"16 {a}: captured costs and accept flags equal to eager "
+              f"{same}")
+        if a == "onehot" and not same:
+            failures.append("16: the captured one-hot solve's costs or "
+                            "flags differ from the eager one's")
+        elif not same and not (
+                abs(r["final_cost"] - e["final_cost"])
+                <= 1e-3 * abs(e["final_cost"])
+                and bench_ba.path_disagreement(r, e) is None):
+            failures.append(f"16: the captured {a} solve vs eager: "
+                            f"{r['final_cost']} vs {e['final_cost']}, "
+                            f"{bench_ba.path_disagreement(r, e)}")
     o, sc = race["onehot"], race["scatter"]
     if not abs(o["final_cost"] - sc["final_cost"]) \
             <= 1e-3 * abs(sc["final_cost"]):
@@ -2260,19 +2389,20 @@ def run_bench_ba(torch, dev, failures):
     kitti = bench_ba.kitti_scale(dev, base_iters=4, breakdown=False,
                                  repeats=5, spread_iters=8)
     for a, r in kitti["assembly_race"].items():
-        print(f"16 KITTI scale {kitti['problem']} {a}: "
+        print(f"16 KITTI scale {kitti['problem']} {a} ({r['path']}): "
               f"{r['lm_iterations_per_sec']} LM iterations/s, cost "
               f"{r['initial_cost']:.1f} -> {r['final_cost']:.1f}")
     print(f"16 KITTI scale: peak device memory "
           f"{kitti['peak_memory_bytes'] / 2 ** 30:.2f} GiB "
-          f"(torch.cuda.max_memory_allocated)")
+          f"(torch.cuda.max_memory_allocated, the captured solves' warm-up "
+          f"and graph pools)")
     sp = kitti["spread"]
     for a in ("onehot", "scatter"):
         print(f"16 KITTI scale, {sp['repeats']} more races at base_iters="
               f"{sp['base_iters']}, {a}: LM iterations/s median "
               f"{sp[a]['median']}, min {sp[a]['min']}, max {sp[a]['max']} "
               f"({sp[a]['lm_iterations_per_sec']})")
-    return dict(race=race, split=split, kitti=kitti)
+    return dict(race=race, eager=eager, split=split, kitti=kitti)
 
 
 def run_bench(torch, dev, failures):
@@ -2312,6 +2442,24 @@ def run_bench(torch, dev, failures):
         failures.append(f"17a: kernels captured {g.captured_launches}, "
                         f"counted {captured}")
     return dict(report=report, segments=segments, launches=launches)
+
+
+def check_step_mode(step, segments, failures):
+    """Phase 17a, last: phase 6's cached replay (the graph of a direct
+    ``track_step``, the first graph of this process) in the mode of 17a's
+    replays, as 17c holds fresh captures: the slowest of the four device
+    ms within ``MODE_SPREAD`` of the fastest. The slow mode reads ~23%
+    more (PERF.md §6)."""
+    ms = {"phase 6": step["replay_ms"],
+          **{f"17a {k}": seg["replay_ms"] for k, seg in segments.items()}}
+    spread = max(ms.values()) / min(ms.values()) - 1
+    print("17a one mode: replays " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ms.items()) + " device ms, slowest / "
+        f"fastest - 1 = {spread:.4f}; {_smi()}")
+    if spread > MODE_SPREAD:
+        failures.append(f"17a: phase 6's replay {step['replay_ms']:.4f} ms "
+                        f"against 17a's, spread {spread:.4f} > "
+                        f"{MODE_SPREAD}")
 
 
 RATIO_17B = (0.95, 1.10)
@@ -2426,7 +2574,13 @@ def main() -> int:
     from vslam_tpu_torch.config import VSLAMConfig
     from vslam_tpu_torch.ops import _build
     from vslam_tpu_torch.parallel import multihost
+    from vslam_tpu_torch.utils.profiling import use_graph_stream
 
+    # phases 3-4 are this program's own work on the card, before any entry
+    # point of the package: on the default stream they left the first
+    # graphs after them in the slow mode for seconds in about a third of
+    # processes, on the graph stream in none (PERF.md §6)
+    use_graph_stream(dev)
     failures = []
     kern = _build.load()
     print(f"built {kern.path.name} in {kern.seconds:.1f} s")
@@ -2454,7 +2608,7 @@ def main() -> int:
     phase_done(4)
     check_step_vs_cpu(torch, dev, failures)
     phase_done(5)
-    step_launches, ms_frame = run_main_path(torch, dev, failures)
+    step_launches, step = run_main_path(torch, dev, failures)
     phase_done(6)
     check_lifecycle(torch, dev, k2_map, failures)
     del k2_map
@@ -2490,6 +2644,7 @@ def main() -> int:
     ba_bench = run_bench_ba(torch, dev, failures)
     phase_done(16)
     bench_res = run_bench(torch, dev, failures)
+    check_step_mode(step, bench_res["segments"], failures)
     phase_done("17a")
     prof = run_profile(torch, dev, failures)
     phase_done("17b")
@@ -2530,7 +2685,9 @@ def main() -> int:
         print("FAIL:", f)
     if failures:
         return 1
-    print(f"main path ms/frame: track_step {ms_frame:.3f}; process "
+    print(f"main path ms/frame: track_step (phase 6) cached "
+          f"{step['ms_frame']:.3f}, eager {step['ms_eager']:.3f}, replay "
+          f"{step['replay_ms']:.3f} device ms; process "
           + ", ".join(f"{k} {v[0]:.3f} (n={v[1]})" for k, v in ms_kind.items()
                       if v[0] is not None)
           + f"; global BA {ms_global:.3f} ms; "
@@ -2556,7 +2713,8 @@ def main() -> int:
           + f"; two ranks on gloo (phase 14b, a check, not a rate) "
           f"{two['ms_frame']:.3f} ms/frame, BA {two['ba_ms']:.3f} ms/solve"
           + "; BA 20x8192x16 (phase 16) " + ", ".join(
-              f"{a} {r['lm_iterations_per_sec']} it/s"
+              f"{a} {r['lm_iterations_per_sec']} it/s captured, "
+              f"{ba_bench['eager'][a]['lm_iterations_per_sec']} eager"
               for a, r in ba_bench["race"].items())
           + "; bench (phase 17a) frames/s " + ", ".join(
               f"{k} {v['fps']:.3f} (replay {v['replay_ms']:.3f} ms)"

@@ -49,6 +49,7 @@ def main() -> int:
     import chip_smoke as cs
     from vslam_tpu_torch.config import VSLAMConfig
     from vslam_tpu_torch.pipeline import scan_driver, slam, tracker
+    from vslam_tpu_torch.utils import jit
 
     dev = torch.device("cuda")
     cfg = VSLAMConfig()
@@ -88,8 +89,9 @@ def main() -> int:
     a, b = body(), body()
     report("one frame, eager vs eager", field_diffs(a[0], b[0])
            + field_diffs(a[1], b[1]))
-    report("one frame, track_step vs body",
-           field_diffs(tracker.track_step(clone_state(st0), x, cfg)[0], a[0]))
+    with jit.disable_jit():
+        eager = tracker.track_step(clone_state(st0), x, cfg)[0]
+    report("one frame, track_step vs body", field_diffs(eager, a[0]))
     g = scan_driver.frame_graph(cfg, hw, mf)
     c = g.run(clone_state(st0), sr0, x[None])
     report("one frame, graph vs eager", field_diffs(c[0], a[0])

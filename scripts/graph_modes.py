@@ -4,7 +4,7 @@ capture: its nodes by type and its replays' device ms.
 
     python3 scripts/graph_modes.py [--root DIR] [--captures 8] [--procs 2]
         [--replays 24] [--trace] [--attribute] [--one-stream]
-        [--out FILE]
+        [--kernels-first {default,graph}] [--out FILE]
 
 DIR is a checkout of this repository (default: the one holding this
 script); its ``vslam_tpu_torch`` is the one measured, so one command can
@@ -37,14 +37,20 @@ profiles one eager ``track_step`` with Python stacks and counts every
 capture each one is a memcpy node). ``--one-stream`` runs all of it on
 one non-default stream, warm-up and capture included, whatever stream
 the checkout's package asks for: the A/B that showed a checkout whose
-graph work changed streams running in two modes (PERF.md §6). Results go
-to ``--out``
-(JSON) and stdout; exits 2 without a card.
+graph work changed streams running in two modes (PERF.md §6).
+``--kernels-first`` reads another pattern instead, in this process and
+``--procs`` more: ``chip_smoke.py``'s kernel checks (phases 3-4, work of
+the program's own on the card) on the default stream or on the graph
+stream, then its phase 6 (direct ``track_step`` calls through
+``utils.jit``'s cached graph, the process's first graph), and prints
+each process's replay device ms and how many read the slow mode. Results
+go to ``--out`` (JSON) and stdout; exits 2 without a card.
 """
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import ctypes
 import json
 import os
@@ -261,16 +267,24 @@ def trace(torch, g, cfg, state, frames, out_dir, n=3):
 
 def attribute(torch, cfg, state, frame):
     """Every cudaMemcpyAsync of one eager track_step, counted by the port's
-    innermost call sites (and the aten op above the call)."""
+    innermost call sites (and the aten op above the call). A checkout
+    with ``utils.jit`` runs the step under its ``disable_jit`` (a direct
+    call there replays a graph); an older one's step is eager."""
     from vslam_tpu_torch.pipeline import tracker
+    try:
+        from vslam_tpu_torch.utils.jit import disable_jit
+    except ImportError:             # a checkout from before utils.jit
+        disable_jit = contextlib.nullcontext
 
     draws = state.key.get_state()
-    tracker.track_step(state, frame, cfg)           # warm
+    with disable_jit():
+        tracker.track_step(state, frame, cfg)           # warm
     torch.cuda.synchronize()
     state.key.set_state(draws)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, with_stack=True) as prof:
+    with torch.profiler.profile(activities=acts, with_stack=True) as prof, \
+            disable_jit():
         tracker.track_step(state, frame, cfg)
         torch.cuda.synchronize()
     state.key.set_state(draws)
@@ -291,11 +305,34 @@ def attribute(torch, cfg, state, frame):
     return dict(total=total, sites=sites.most_common())
 
 
-def child(root, out_path, replays, one_stream=False):
+def kernels_first(torch, dev, stream):
+    """``chip_smoke.py``'s phases 3-4 on ``stream`` ("default": before
+    the switch to the graph stream; "graph": after it), then its phase 6;
+    returns phase 6's record (its cached replay's device ms first)."""
+    import io
+
+    import chip_smoke
+    from vslam_tpu_torch.config import VSLAMConfig
+    from vslam_tpu_torch.utils import profiling
+
+    failures = []
+    with contextlib.redirect_stdout(io.StringIO()):
+        if stream == "graph":
+            profiling.use_graph_stream(dev)
+        chip_smoke.check_k1(torch, dev, failures)
+        chip_smoke.check_k2(torch, dev, VSLAMConfig(), failures)
+        _, rec = chip_smoke.run_main_path(torch, dev, failures)
+    if failures:
+        raise RuntimeError(f"chip_smoke's phases failed: {failures}")
+    return dict(rec, median_ms=rec["replay_ms"])
+
+
+def child(root, out_path, replays, one_stream=False, first=None):
     cmd = [sys.executable, str(Path(__file__).resolve()), "--root",
            str(root), "--captures", "1", "--procs", "0", "--replays",
            str(replays), "--out", out_path, "--quiet"] \
-        + (["--one-stream"] if one_stream else [])
+        + (["--one-stream"] if one_stream else []) \
+        + (["--kernels-first", first] if first else [])
     r = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
     if r.returncode != 0:
         raise RuntimeError(f"child failed ({r.returncode}): "
@@ -323,6 +360,9 @@ def main() -> int:
     ap.add_argument("--one-stream", action="store_true",
                     help="run everything, warm-up and capture included, "
                     "on one non-default stream")
+    ap.add_argument("--kernels-first", choices=("default", "graph"),
+                    help="chip_smoke.py's kernel checks on this stream, "
+                    "then its direct track_step phase, per process")
     ap.add_argument("--out", default=None)
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args()
@@ -340,6 +380,28 @@ def main() -> int:
     say = (lambda *a: None) if args.quiet else print
     say(f"graph_modes: root {root}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; {torch.cuda.get_device_name(0)}; {smi}")
+    if args.kernels_first:
+        work = tempfile.mkdtemp(prefix="graph_modes_", dir=os.environ.get(
+            "TMPDIR"))
+        recs = [dict(kernels_first(torch, dev, args.kernels_first),
+                     process="main")]
+        for j in range(args.procs):
+            recs += [dict(r, process=f"child {j}") for r in child(
+                root, os.path.join(work, f"child{j}.json"), args.replays,
+                first=args.kernels_first)]
+        for r in recs:
+            say(f"{r['process']}: kernel checks on the {args.kernels_first} "
+                f"stream, then phase 6: replay {r['replay_ms']:.4f} device "
+                f"ms, {r['ms_frame']:.3f} ms/frame")
+        slow = sum(r["replay_ms"] > FAST_SLOW_MS for r in recs)
+        say(f"{slow} of {len(recs)} processes in the slow mode (replay > "
+            f"{FAST_SLOW_MS} ms; {smi})")
+        res = dict(root=str(root), smi=smi, torch=torch.__version__,
+                   kernels_first=args.kernels_first, captures=recs)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(res, f, indent=1)
+        return 0
     from vslam_tpu_torch.pipeline import scan_driver
     kept_graphs(torch, scan_driver)
     if args.one_stream:

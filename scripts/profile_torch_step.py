@@ -4,7 +4,9 @@ Run from the repository root: ``python scripts/profile_torch_step.py``.
 Tracks the default config (1248x384, 3072 keypoints, capacity 131072) over
 the synthetic scene chip_smoke.py uses; after two warm-up steps it profiles
 ``--steps`` steps unprofiled for the wall time, then ``--steps`` more with
-``torch.profiler`` (CPU + CUDA activity). Each stage
+``torch.profiler`` (CPU + CUDA activity), every step eager
+(``utils.jit.disable_jit``: a direct ``track_step`` on a card replays a
+captured graph, whose stages no span can see). Each stage
 of ``tracker._step_impl`` is wrapped, here only, in a ``record_function``
 span, so the report gives per stage: host time (the span's CPU total) and
 the number of operators it issued; and for the whole window: wall time,
@@ -31,6 +33,7 @@ from vslam_tpu_torch.geometry import pnp, ransac, triangulation  # noqa: E402
 from vslam_tpu_torch.mapping import point_map  # noqa: E402
 from vslam_tpu_torch.matching import matcher  # noqa: E402
 from vslam_tpu_torch.pipeline import tracker  # noqa: E402
+from vslam_tpu_torch.utils.jit import disable_jit  # noqa: E402
 
 # (module, attribute, span name): the stages of the step
 STAGES = (
@@ -130,4 +133,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    with disable_jit():
+        sys.exit(main())

@@ -40,6 +40,7 @@ without enough cards.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -92,6 +93,7 @@ def _checks(torch, n, dev, say):
     from vslam_tpu_torch.parallel import multi_sequence
     from vslam_tpu_torch.pipeline.slam import SLAMSystem
     from vslam_tpu_torch.tools import bench
+    from vslam_tpu_torch.utils import jit
     from vslam_tpu_torch.utils.profiling import graph_kernels
 
     cfg = VSLAMConfig()
@@ -146,8 +148,11 @@ def _checks(torch, n, dev, say):
         for fi in range(1, MS_FRAMES):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            bst, o = multi_sequence.batched_track_step(bst, seqs[:, fi], cfg,
-                                                       dmesh, "data")
+            # eager: no graph of the batch, and no cached graph a step
+            with (jit.disable_jit() if name == "eager"
+                  else contextlib.nullcontext()):
+                bst, o = multi_sequence.batched_track_step(
+                    bst, seqs[:, fi], cfg, dmesh, "data")
             torch.cuda.synchronize()
             wall.append(1e3 * (time.perf_counter() - t0))
             outs.append(o)

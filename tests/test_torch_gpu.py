@@ -583,6 +583,7 @@ def test_bench_graph_matches_eager_step_on_cuda(cuda, rng):
     times."""
     from vslam_tpu_torch.pipeline import scan_driver, tracker
     from vslam_tpu_torch.tools import bench
+    from vslam_tpu_torch.utils import jit
     frames = torch.from_numpy(_chunk_scene(5)).to(cuda)
 
     def start():
@@ -590,9 +591,11 @@ def test_bench_graph_matches_eager_step_on_cuda(cuda, rng):
         return bench.prepopulate(st, 2048, 5, rng)
 
     want, rows = start(), []
-    for t in range(1, 5):
-        want, _, row, _ = scan_driver.step_body(want, None, frames[t], CFG)
-        rows.append(row)
+    with jit.disable_jit():
+        for t in range(1, 5):
+            want, _, row, _ = scan_driver.step_body(want, None, frames[t],
+                                                    CFG)
+            rows.append(row)
     g = scan_driver.step_graph(CFG)
     got, got_rows = scan_driver.carried(start(), frames[1:], CFG, g)
     assert torch.equal(got_rows, torch.stack(rows))

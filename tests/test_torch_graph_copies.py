@@ -26,6 +26,7 @@ from vslam_tpu_torch.config import small_config
 from vslam_tpu_torch.core import lie, types
 from vslam_tpu_torch.ops import jacobi
 from vslam_tpu_torch.pipeline import scan_driver
+from vslam_tpu_torch.utils import jit
 
 torch.set_num_threads(2)
 
@@ -364,10 +365,11 @@ def _run_steps(frames, dev="cpu", rng="torch"):
     from vslam_tpu_torch.pipeline import tracker
     st = tracker.bootstrap(frames[0].to(dev), CFG, dev, rng=rng)
     rows = []
-    for t in range(1, frames.shape[0]):
-        st, _, row, _ = scan_driver.step_body(st, None, frames[t].to(dev),
-                                              CFG)
-        rows.append(row)
+    with jit.disable_jit():             # eager on a card too
+        for t in range(1, frames.shape[0]):
+            st, _, row, _ = scan_driver.step_body(st, None,
+                                                  frames[t].to(dev), CFG)
+            rows.append(row)
     return st, torch.stack(rows)
 
 

@@ -480,6 +480,7 @@ def card_batched_case(p):
     from vslam_tpu_torch.ops import hamming as k1
     from vslam_tpu_torch.parallel import mesh as mesh_mod
     from vslam_tpu_torch.parallel import multi_sequence
+    from vslam_tpu_torch.utils import jit
 
     cfg = VSLAMConfig.from_json(p["cfg"])
     dev = torch.device("cuda", 0)
@@ -494,8 +495,9 @@ def card_batched_case(p):
         a, oa = multi_sequence.batched_track_step(a, seqs[:, fi], cfg,
                                                   dmesh, "data")
         launched.append((k1.launches - before[0], k2.launches - before[1]))
-        b, ob = multi_sequence.batched_track_step(b, seqs[:, fi], cfg,
-                                                  dmesh, "data")
+        with jit.disable_jit():
+            b, ob = multi_sequence.batched_track_step(b, seqs[:, fi], cfg,
+                                                      dmesh, "data")
         c, oc = torch_frozen.eager_batched_track_step(c, seqs[:, fi], cfg,
                                                       dmesh, "data")
         for name, x, y, z in zip(oa._fields, oa, ob, oc):
@@ -518,6 +520,58 @@ def card_batched_case(p):
                 shape_refused=shape_refused,
                 nodes=g.nodes, capture_s=g.capture_s,
                 eager_graph=b.graph, poses=oa.pose.cpu().numpy())
+
+
+def card_jit_step_case(p):
+    """``tracker.track_step(mesh=)`` called directly on a one-rank NCCL
+    mesh over ``p["frames"]``: replays of the sharded step's graph cached
+    by ``utils.jit`` against the same steps eager (``disable_jit``), from
+    two bootstraps; then ``multihost.shutdown`` and what is left cached."""
+    import torch_frozen
+    from vslam_tpu_torch.config import VSLAMConfig
+    from vslam_tpu_torch.parallel import mesh as mesh_mod
+    from vslam_tpu_torch.parallel import multihost
+    from vslam_tpu_torch.pipeline import tracker
+    from vslam_tpu_torch.utils import jit
+
+    cfg, frames = VSLAMConfig.from_json(p["cfg"]), p["frames"]
+    dev = torch.device("cuda", 0)
+    axis = cfg.mesh.axis_map
+    mesh = mesh_mod.make_mesh(axis, 1)
+    xs = [torch.from_numpy(f).to(dev) for f in frames]
+
+    def run(eager):
+        st = tracker.bootstrap(xs[0], cfg, dev, rng=p["rng"])
+        outs = []
+        for x in xs[1:]:
+            if eager:
+                with jit.disable_jit():
+                    st, o = tracker.track_step(st, x, cfg, mesh=mesh,
+                                               map_axis=axis)
+            else:
+                st, o = tracker.track_step(st, x, cfg, mesh=mesh,
+                                           map_axis=axis)
+            outs.append(o)
+        return st, outs
+
+    want, wo = run(eager=True)
+    got, go = run(eager=False)
+    (g,) = jit.cache().values()
+    differs = [(i, k) for i, (a, b) in enumerate(zip(go, wo))
+               for k, x, y in zip(a._fields, a, b) if not torch.equal(x, y)]
+    differs += [n for (n, x), (_, y) in zip(torch_frozen.tensors(got),
+                                            torch_frozen.tensors(want))
+                if not torch.equal(x, y)]
+    if isinstance(got.key, torch.Generator) and not torch.equal(
+            got.key.get_state(), want.key.get_state()):
+        differs.append("key")
+    out = dict(backend=dist.get_backend(), has_mesh=g.mesh is mesh,
+               replays=g.replays, captured_launches=g.captured_launches,
+               differs=differs,
+               poses=np.stack([o.pose.cpu().numpy() for o in go]))
+    multihost.shutdown()
+    out["cached_after_shutdown"] = len(jit.cache())
+    return out
 
 
 def card_teardown_case(p):

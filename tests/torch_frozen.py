@@ -6,7 +6,9 @@ step went through ``scan_driver``: the eager ``tracker.track_step`` (with
 the system's mesh, if any) and one ``torch.cat`` fetch.
 ``eager_batched_track_step`` is ``parallel.multi_sequence.
 batched_track_step`` as it was before it could replay a graph: a loop of
-eager ``track_step``s, then one ``all_gather`` a field. numpy, torch and
+eager ``track_step``s, then one ``all_gather`` a field. Both call the
+step under ``utils.jit.disable_jit``, so on a card too it runs eagerly
+(a direct call there replays a cached graph). numpy, torch and
 the port only, never jax: the spawned ranks of tests/torch_dist.py and the
 ``gpu`` tests' spawned processes import it.
 """
@@ -19,6 +21,7 @@ from vslam_tpu_torch.config import MapConfig, small_config
 from vslam_tpu_torch.datasets import synthetic
 from vslam_tpu_torch.parallel.mesh import all_gather
 from vslam_tpu_torch.pipeline import keyframes, scan_driver, slam, tracker
+from vslam_tpu_torch.utils import jit
 
 _SMALL = small_config()
 # structure refinement every 2nd keyframe; a 512-slot map, so maintenance
@@ -59,9 +62,10 @@ class EagerProcess(slam.SLAMSystem):
             self.frame_idx = 1
             return info
 
-        self.state, out = tracker.track_step(self.state, img, self.cfg,
-                                             mesh=self.mesh,
-                                             map_axis=self._map_axis)
+        with jit.disable_jit():
+            self.state, out = tracker.track_step(self.state, img, self.cfg,
+                                                 mesh=self.mesh,
+                                                 map_axis=self._map_axis)
         self.last_output = out
         host = torch.cat([
             out.pose.reshape(16).to(torch.float64),
@@ -203,8 +207,9 @@ def premises(s, infos):
 def eager_batched_track_step(state, imgs, cfg, mesh, axis_name: str):
     """``multi_sequence.batched_track_step`` as it was: each of this
     rank's sequences' eager ``track_step``, then the gather."""
-    steps = [tracker.track_step(st, imgs[state.first + j], cfg)
-             for j, st in enumerate(state.states)]
+    with jit.disable_jit():
+        steps = [tracker.track_step(st, imgs[state.first + j], cfg)
+                 for j, st in enumerate(state.states)]
     S = state.num_sequences
     out = tracker.TrackOutput(*(
         all_gather(mesh, axis_name, torch.stack(f)).reshape(

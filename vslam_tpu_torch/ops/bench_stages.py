@@ -11,8 +11,10 @@ cell). Each stage is timed two ways:
     10 times (``utils.profiling.graph_times_ms``; the mean, and the least
     and most of one replay): its kernels' device time without the host's
     launch cost, what the chunked driver pays;
-  * ``host_ms``: eager calls, host clock through a synchronize
-    (``utils.profiling.host_ms``): what the per-frame driver pays.
+  * ``host_ms``: eager calls under ``utils.jit.disable_jit``, host clock
+    through a synchronize (``utils.profiling.host_ms``): what PyTorch's
+    dispatch of every op costs, as an eager driver paid it (``process``
+    and a direct ``track_step`` replay graphs on a card).
 
 Stages: feature extraction (upright; oriented; oriented with a carry of
 every previous keypoint), matching (kernel K1), RANSAC pose, triangulation,
@@ -42,6 +44,7 @@ from ..geometry import pnp, ransac, triangulation
 from ..mapping import point_map
 from ..matching import matcher
 from ..pipeline import tracker
+from ..utils import jit
 from ..utils.profiling import graph_times_ms, host_ms, nvidia_smi
 
 
@@ -132,14 +135,15 @@ def stages(dev, map_size: int, cfg: VSLAMConfig = None):
 
 
 def _row(name, fn, gens) -> dict:
-    """Host ms, and device ms of 10 replays of one capture: their mean and
-    spread (a spread shows replays that do unequal work)."""
-    host = host_ms(fn)
+    """Eager host ms, and device ms of 10 replays of one capture: their
+    mean and spread (a spread shows replays that do unequal work)."""
+    with jit.disable_jit():
+        host = host_ms(fn)
     times = graph_times_ms(fn, generators=gens)
     row = dict(stage=name, host_ms=host, device_ms=sum(times) / len(times),
                device_ms_min=min(times), device_ms_max=max(times))
     print(f"stage {name:42s} device {row['device_ms']:9.3f} ms "
-          f"({min(times):.3f}-{max(times):.3f})   host {host:9.3f} ms")
+          f"({min(times):.3f}-{max(times):.3f})   eager host {host:9.3f} ms")
     return row
 
 

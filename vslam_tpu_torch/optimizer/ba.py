@@ -29,6 +29,7 @@ from ..config import BAConfig
 from ..core import lie
 from ..core.types import Replace
 from ..parallel.mesh import psum
+from ..utils import jit
 
 
 @dataclasses.dataclass
@@ -327,8 +328,10 @@ def _solve_impl(problem: BAProblem, K_intr, cfg: BAConfig, mesh=None,
 
 
 def solve(problem: BAProblem, K_intr, cfg: BAConfig):
-    """Run LM iterations (single device). Returns (new_problem, BAStats)."""
-    return _solve_impl(problem, K_intr, cfg)
+    """Run LM iterations (single device). Returns (new_problem, BAStats).
+    On a card the replay of a graph cached in ``utils.jit`` by ``cfg`` and
+    the inputs' shapes, dtypes and devices (``_jitted``)."""
+    return _jitted(_solve_impl, problem, K_intr, dict(cfg=cfg))
 
 
 def observation_residuals(problem: BAProblem, K_intr):
@@ -346,10 +349,33 @@ def solve_robust(problem: BAProblem, K_intr, cfg: BAConfig,
                  reject_px: float = 5.0, rounds: int = 2):
     """LM solve with interleaved gross-outlier rejection: between rounds,
     observations whose residual exceeds ``reject_px`` are disabled, and
-    points left with < 2 live observations are dropped."""
+    points left with < 2 live observations are dropped. On a card the
+    replay of a graph cached by ``cfg``, ``reject_px``, ``rounds`` and the
+    inputs' shapes, dtypes and devices (``_jitted``)."""
+    return _jitted(_robust_impl, problem, K_intr,
+                   dict(cfg=cfg, reject_px=reject_px, rounds=rounds))
+
+
+def _jitted(fn, problem: BAProblem, K_intr, statics: dict):
+    """``fn(problem, K, **statics)``: on a card, outside
+    ``utils.jit.disable_jit`` and outside a capture, the replay of the
+    ``utils.jit.Graph`` cached at its key (``K`` a float32 tensor on the
+    problem's device, as the eager solve makes it), captured at the first
+    call; eager otherwise. Returns copies, as the eager solve returns new
+    tensors."""
+    dev = problem.T_cw.device
+    if not jit.active(dev):
+        return fn(problem, K_intr, **statics)
+    K = torch.as_tensor(K_intr, dtype=torch.float32).to(dev)
+    return jit.call(fn, (problem, K), statics)
+
+
+def _robust_impl(problem: BAProblem, K_intr, cfg: BAConfig,
+                 reject_px: float, rounds: int):
+    """``solve_robust``'s rounds, eager."""
     stats = None
     for i in range(rounds):
-        problem, stats = solve(problem, K_intr, cfg)
+        problem, stats = _solve_impl(problem, K_intr, cfg)
         if i + 1 < rounds:
             keep = observation_residuals(problem, K_intr) < reject_px
             new_mask = problem.obs_mask & keep

@@ -40,6 +40,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
+
 # join and collective timeout of every group this package creates: a rank
 # whose control flow diverged fails instead of hanging
 TIMEOUT = datetime.timedelta(seconds=300)
@@ -110,8 +111,8 @@ def free_captured() -> int:
     exception's traceback through a frame that held one. NCCL's
     ``destroy_process_group`` waits until no graph that captured its
     collectives is left (it hung on four H100s), so
-    ``multihost.shutdown`` calls this first. A freed graph's replay
-    raises. Returns how many were freed."""
+    ``multihost.shutdown`` calls this first. Returns how many were
+    freed."""
     graphs = list(_CAPTURED)
     for g in graphs:
         g.reset()

@@ -15,7 +15,9 @@ On a card with a mesh whose collectives can be captured (NCCL,
 gather, is one CUDA graph (a ``scan_driver.ChunkGraph`` over the list of
 the rank's states, a generator each), captured at the first step and
 replayed at each; on the CPU and on a gloo mesh it runs eagerly, the same
-function.
+function, whose sequences' ``track_step``s on a card each replay the
+process's cached step graph (``utils.jit``; the batched graph's capture
+runs them eagerly, as a jitted function inside another is inlined).
 """
 from __future__ import annotations
 

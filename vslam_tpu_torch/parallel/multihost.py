@@ -23,6 +23,7 @@ from typing import List, Optional
 import torch
 import torch.distributed as dist
 
+from ..utils import jit
 from . import mesh as mesh_mod
 
 
@@ -73,7 +74,10 @@ def shutdown() -> None:
     (``mesh.free_captured``), whoever still holds it, because NCCL's
     ``destroy_process_group`` waits for them: a rank whose program raised
     with a captured system in its traceback would hang here instead of
-    exiting with its error. Call it in a ``finally``."""
+    exiting with its error. ``utils.jit``'s cached graphs that hold a
+    mesh go first (``jit.holds_mesh``), so a later direct call captures
+    anew instead of replaying a freed graph. Call it in a ``finally``."""
+    jit.clear_cache(jit.holds_mesh)
     mesh_mod.free_captured()
     if dist.is_initialized():
         dist.destroy_process_group()

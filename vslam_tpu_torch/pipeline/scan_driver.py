@@ -53,6 +53,11 @@ from ..mapping import point_map
 from ..ops import associate as k2
 from ..ops import hamming as k1
 from ..parallel.mesh import capturable, keep_captured
+from ..utils import jit
+from ..utils.jit import copy_into as _copy_into
+from ..utils.jit import fields as _fields
+from ..utils.jit import tensors as _tensors
+from ..utils.jit import tree_map as _map
 from ..utils.profiling import graph_nodes, use_graph_stream
 from . import keyframes as kf_mod
 from . import tracker
@@ -115,40 +120,6 @@ def _maintenance(m, prev_map_id, obs_pid, min_free: int):
             point_map.remap_ids(obs_pid, remap))
 
 
-def _fields(obj):
-    return [(f.name, getattr(obj, f.name)) for f in dataclasses.fields(obj)]
-
-
-def _tensors(obj):
-    """Every tensor of a dataclass of tensors, nested ones included, or of
-    a list of them (none for None)."""
-    if obj is None:
-        return
-    if isinstance(obj, list):
-        for o in obj:
-            yield from _tensors(o)
-        return
-    for _, v in _fields(obj):
-        if dataclasses.is_dataclass(v):
-            yield from _tensors(v)
-        elif isinstance(v, torch.Tensor):
-            yield v
-
-
-def _map(fn, obj):
-    """``fn`` on every tensor of a dataclass of tensors, or of each of a
-    list of them (nested dataclasses recursed into; anything else, such as
-    the generator, kept; None stays None)."""
-    if obj is None:
-        return None
-    if isinstance(obj, list):
-        return [_map(fn, o) for o in obj]
-    return type(obj)(**{
-        k: _map(fn, v) if dataclasses.is_dataclass(v)
-        else fn(v) if isinstance(v, torch.Tensor) else v
-        for k, v in _fields(obj)})
-
-
 def _each(state):
     """The tracker states of ``state``: itself, or the batched step's list
     of them."""
@@ -170,34 +141,6 @@ def _select(cond, a, b):
         else torch.where(cond, v, getattr(b, k))
         if isinstance(v, torch.Tensor) else v
         for k, v in _fields(a)})
-
-
-def _copy_into(dst, src):
-    """Copy every tensor of ``src`` into the same field of ``dst`` (two
-    dataclasses of tensors, or two lists of them), one
-    ``torch._foreach_copy_`` a dtype (nothing when ``dst`` is None). A
-    same-dtype ``copy_`` on a card is one ``cudaMemcpyAsync`` a tensor,
-    which a capture records as one memcpy node a tensor; the foreach copy
-    is one kernel a dtype, so the graph's write-back of the state takes
-    one node a dtype. Bit for bit the same copy."""
-    groups = {}
-
-    def collect(d, s):
-        if isinstance(d, list):
-            for a, b in zip(d, s):
-                collect(a, b)
-            return
-        for k, v in _fields(d):
-            if dataclasses.is_dataclass(v):
-                collect(v, getattr(s, k))
-            elif isinstance(v, torch.Tensor):
-                ds, ss = groups.setdefault(v.dtype, ([], []))
-                ds.append(v)
-                ss.append(getattr(s, k))
-    if dst is not None:
-        collect(dst, src)
-    for ds, ss in groups.values():
-        torch._foreach_copy_(ds, ss)
 
 
 def frame_body(st: tracker.TrackerState, sr: kf_mod.KeyframeStore, x,
@@ -258,6 +201,10 @@ class ChunkGraph:
     Inside the capture the new state is written back into the static
     buffers by ``_copy_into``, and the RANSAC generator is registered with
     the graph, so each replay draws what the eager step would draw next.
+    Warm-up and capture run under ``utils.jit.disable_jit``: the
+    ``tracker.track_step`` a body calls runs its eager body there, which
+    the graph records (a direct ``track_step`` on a card replays such a
+    graph, ``step_graph``, from ``utils.jit``'s cache).
 
     ``body(state, store, x) -> (state, store, row, out)`` is ``frame_body``
     or ``step_body`` with its settings bound (``frame_graph``,
@@ -315,6 +262,11 @@ class ChunkGraph:
         self.pool_peak_bytes: Optional[int] = None
 
     def _capture(self, state, store, x):
+        # the body's own entry points run eagerly, in the warm-up too
+        with jit.disable_jit():
+            self._capture_body(state, store, x)
+
+    def _capture_body(self, state, store, x):
         dev = x.device
         t0 = time.perf_counter()
         # a generator advances in place, so the warm-up draws from copies
@@ -510,15 +462,17 @@ def _frame_fn(cfg, high_water, min_free, render_fn):
 
 def _run(body, state, store, frames, graph, eager: bool = False):
     """``body`` over ``frames``: ``graph`` (``ChunkGraph(body)`` when None)
-    on CUDA, a Python loop on the CPU or with ``eager``. Returns (state,
-    store, rows, the last frame's out)."""
+    on CUDA, a Python loop on the CPU or with ``eager`` (under
+    ``jit.disable_jit``: the step replays no cached graph there either).
+    Returns (state, store, rows, the last frame's out)."""
     dev = state.pose.device
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda" and not eager:
         return (graph or ChunkGraph(body)).run(state, store, frames)
     rows = []
-    for t in range(frames.shape[0]):
-        state, store, row, out = body(state, store, frames[t])
-        rows.append(row)
+    with jit.disable_jit():
+        for t in range(frames.shape[0]):
+            state, store, row, out = body(state, store, frames[t])
+            rows.append(row)
     return state, store, torch.stack(rows), out

@@ -16,12 +16,15 @@ CUDA graphs: ``process`` replays one captured ``track_step``
 (``scan_driver.step_graph``, captured at the bootstrap frame) per frame,
 ``process_chunk`` one captured frame body per frame, and window BA and
 structure refinement one captured ``solve_robust`` per event
-(``_solve_robust``). The host's decisions and writes (keyframes, BA's
+(``_solve_robust``). These graphs are the system's own, held on it
+beside ``utils.jit``'s process cache, which direct calls of
+``track_step`` and the solves replay; ``utils.jit.disable_jit`` leaves
+them as they are. The host's decisions and writes (keyframes, BA's
 guards, maintenance) run eagerly between replays; the state is copied
 into the graph at every call. A capture or replay that fails raises:
-nothing falls back to the eager step. Global BA runs eagerly (once a
-run, at a shape that depends on the run), and the CPU runs everything
-eagerly.
+nothing falls back to the eager step. Global BA runs eagerly, under
+``disable_jit`` (once a run, at a shape that depends on the run), and
+the CPU runs everything eagerly.
 
 With a mesh (``parallel.mesh.make_mesh``) every rank runs this same loop
 and holds its block of the map (BASELINE config 4): each step is
@@ -50,12 +53,12 @@ import numpy as np
 import torch
 
 from ..config import VSLAMConfig
-from ..mapping import point_map
 from ..optimizer import ba
 from ..parallel import sharded_map
 from ..parallel.mesh import axis_size, capturable
+from ..utils import jit
 from ..utils.metrics import MetricsLogger
-from ..utils.profiling import capture, use_graph_stream
+from ..utils.profiling import use_graph_stream
 from . import keyframes, scan_driver, tracker
 
 # the counters of a frame's info, in ChunkScalars' order
@@ -91,38 +94,6 @@ def _window_gate_stats(problem: ba.BAProblem, sel_prov):
               & pm & ~sel_prov)
     solid_obs = (ofix & om & bridge[:, None]).sum()
     return n_obs_free, n_free, deep_obs, solid_obs
-
-
-class _SolveGraph:
-    """``ba.solve_robust`` with fixed settings, captured once as a CUDA
-    graph on static copies of its inputs (``utils.profiling.capture``: an
-    eager warm-up, then the capture, on the card's graph stream). A call
-    copies the problem in, replays, and returns copies of the outputs,
-    which the next replay does not overwrite. The LM loop reads nothing
-    back to the host (``optimizer/ba.py``), so the graph is the whole
-    solve. ``capture_s``: warm-up and capture, host clock."""
-
-    def __init__(self, problem: ba.BAProblem, K, cfg, reject_px: float,
-                 rounds: int):
-        t0 = time.perf_counter()
-        self.problem = scan_driver._map(torch.clone, problem)
-        self.K = K.clone()
-
-        def solve():
-            self.out = ba.solve_robust(self.problem, self.K, cfg,
-                                       reject_px=reject_px, rounds=rounds)
-        self.graph = capture(solve)
-        self.capture_s = time.perf_counter() - t0
-        self.replays = 0
-
-    def __call__(self, problem: ba.BAProblem, K):
-        scan_driver._copy_into(self.problem, problem)
-        self.K.copy_(K)
-        self.graph.replay()
-        self.replays += 1
-        solved, stats = self.out
-        return (scan_driver._map(torch.clone, solved),
-                ba.BAStats(*map(torch.clone, stats)))
 
 
 class SLAMSystem:
@@ -465,23 +436,18 @@ class SLAMSystem:
     def _solve_robust(self, problem: ba.BAProblem, ba_cfg, reject_px: float,
                       rounds: int):
         """``ba.solve_robust`` of a window problem. On a card the replay of
-        a graph cached in ``ba_graphs`` by what ``jax.jit`` keys the
-        reference's solve on: the config, ``reject_px``, ``rounds`` and
-        each input's shape, dtype and device. The window's shapes come from
-        the config, so one graph serves every event of a run. On the CPU,
-        the eager solve."""
+        a ``utils.jit.Graph`` cached in the system's own ``ba_graphs`` (a
+        ``utils.jit`` cache, so its counts are this system's) by what
+        ``jax.jit`` keys the reference's solve on: the config,
+        ``reject_px``, ``rounds`` and each input's shape, dtype and
+        device. The window's shapes come from the config, so one graph
+        serves every event of a run. On the CPU, the eager solve."""
         if self.device.type != "cuda":
             return ba.solve_robust(problem, self._K, ba_cfg,
                                    reject_px=reject_px, rounds=rounds)
-        key = (ba_cfg, reject_px, rounds, tuple(
-            (t.shape, t.dtype, t.device)
-            for t in (*scan_driver._tensors(problem), self._K)))
-        g = self.ba_graphs.get(key)
-        if g is None:
-            with torch.cuda.device(self.device):
-                g = self.ba_graphs[key] = _SolveGraph(
-                    problem, self._K, ba_cfg, reject_px, rounds)
-        return g(problem, self._K)
+        return jit.call(ba._robust_impl, (problem, self._K),
+                        dict(cfg=ba_cfg, reject_px=reject_px, rounds=rounds),
+                        self.ba_graphs)
 
     # ------------------------------------------------------------------
     def _refine_structure(self):
@@ -604,15 +570,19 @@ class SLAMSystem:
         wp = keyframes.build_window_problem(
             self.kf_store, whole, cfg.replace(ba=ba_cfg),
             window=self.kf_store.ring_size, max_points=P)
-        if mesh is not None:
-            from ..parallel import sharded_ba
-            p, _ = ba.solve_robust(wp.problem, self._K, ba_cfg,
-                                   reject_px=reject_px, rounds=2)
-            solved, stats = sharded_ba.solve_sharded(mesh, axis_name, p,
-                                                     self._K, ba_cfg)
-        else:
-            solved, stats = ba.solve_robust(wp.problem, self._K, ba_cfg,
-                                            reject_px=reject_px, rounds=3)
+        # eager: once a run, at a shape that depends on the run, so a
+        # captured graph would never be replayed
+        with jit.disable_jit():
+            if mesh is not None:
+                from ..parallel import sharded_ba
+                p, _ = ba.solve_robust(wp.problem, self._K, ba_cfg,
+                                       reject_px=reject_px, rounds=2)
+                solved, stats = sharded_ba.solve_sharded(
+                    mesh, axis_name, p, self._K, ba_cfg)
+            else:
+                solved, stats = ba.solve_robust(wp.problem, self._K, ba_cfg,
+                                                reject_px=reject_px,
+                                                rounds=3)
         self.kf_store, new_map, T_corr = keyframes.apply_window_result(
             self.kf_store, whole, wp, solved)
         self.state = self.state.replace(map=self._local(new_map),

@@ -37,7 +37,9 @@ from ..geometry import pnp, ransac, triangulation
 from ..mapping import point_map
 from ..matching import matcher
 from ..matching.hamming import hamming_pairwise
-from ..utils import threefry
+from ..parallel.mesh import capturable
+from ..utils import jit, threefry
+from ..utils.profiling import use_graph_stream
 
 
 @dataclasses.dataclass
@@ -117,6 +119,11 @@ def _key(seed: int, rng: str, device):
 
 def init_state(cfg: VSLAMConfig, device="cuda", seed: int = 0,
                rng: str = "torch") -> TrackerState:
+    """An empty state. On a card the calling thread's stream becomes the
+    card's graph stream first (``utils.profiling.use_graph_stream``), so
+    a direct caller's state, its replays of ``track_step`` and its own
+    work share one stream from the first (trap w, PERF.md §6)."""
+    use_graph_stream(device)
     n = cfg.frontend.max_keypoints
     f32 = dict(dtype=torch.float32, device=device)
     return TrackerState(
@@ -162,7 +169,10 @@ def _masked_medians(cols, masks, fallbacks):
 def bootstrap(img, cfg: VSLAMConfig, device="cuda", seed: int = 0,
               rng: str = "torch") -> TrackerState:
     """Initialize from the first frame: every keypoint opens a
-    delayed-triangulation track."""
+    delayed-triangulation track. Eager (the reference compiles it, but it
+    runs once a sequence); on a card it moves the calling thread onto the
+    graph stream first, as ``init_state`` does."""
+    use_graph_stream(device)
     H, W = cfg.camera.height, cfg.camera.width
     img = torch.as_tensor(img, dtype=torch.float32, device=device)
     feats = extract_features(img, cfg.frontend, H, W)
@@ -242,7 +252,31 @@ def track_step(state: TrackerState, img, cfg: VSLAMConfig, mesh=None,
     With ``mesh`` (a ``parallel.mesh.make_mesh`` mesh carrying
     ``map_axis``), ``state.map`` is this rank's block of the map and the
     step runs with shard-local map operations and explicit collectives
-    (``parallel.sharded_tracker``, BASELINE config 4)."""
+    (``parallel.sharded_tracker``, BASELINE config 4).
+
+    On a card, as the reference's ``jax.jit`` compiles it, the call
+    replays a ``scan_driver.step_graph`` cached in ``utils.jit`` by
+    ``cfg``, ``mesh`` (by identity), ``map_axis`` and the state's and
+    image's shapes, dtypes and devices and RANSAC stream kind, captured
+    at the first such call (``span=True``: ``span_ms`` reads a replay's
+    device ms). The caller's generator advances as in the eager step and
+    the returned state and output are copies. It runs eagerly on the
+    CPU, under ``utils.jit.disable_jit``, inside a capture, and with a
+    mesh whose collectives cannot be captured (gloo,
+    ``parallel.mesh.capturable``)."""
+    dev = state.pose.device
+    if jit.active(dev) and (mesh is None or capturable(mesh)):
+        from . import scan_driver
+        img = torch.as_tensor(img, dtype=torch.float32, device=dev)
+        statics = dict(cfg=cfg, mesh=None if mesh is None else id(mesh),
+                       map_axis=map_axis)
+        # a mesh by identity: its graph captured that mesh's communicator,
+        # and the graph holds the mesh, so the id is not reused
+        g = jit.lookup(jit.key(track_step, statics, (state, img)),
+                       lambda: scan_driver.step_graph(
+                           cfg, span=True, mesh=mesh, map_axis=map_axis))
+        state, _, _, out = g.run(state, None, img[None])
+        return state, out
     if mesh is not None:
         from ..parallel import sharded_tracker
         return sharded_tracker.run_sharded(state, img, cfg, mesh, map_axis)

@@ -13,8 +13,12 @@ and, on a card, nvidia-smi's name and power limit):
     landmarks x observation slots), by iteration-count differencing,
     ``(t(2n) - t(n)) / n``, each run closed by a synchronize, for both
     Schur assemblies (``optimizer.ba``: one-hot and scatter);
-    ``single_chip`` is the faster one. Each race row also carries the
-    final solve's per-iteration ``accepted`` flags and costs
+    ``single_chip`` is the faster one. On a card ``ba.solve`` replays a
+    captured graph (``utils.jit``), as the reference times a jitted
+    solve: ``path`` is ``"captured"``; ``assembly_race_eager`` races the
+    same solves under ``utils.jit.disable_jit`` (``path`` ``"eager"``,
+    PyTorch's dispatch of every op), beside it. Each race row also
+    carries the final solve's per-iteration ``accepted`` flags and costs
     (``path_disagreement`` compares two such rows).
   * measured: one LM iteration split into four stages (GN + Schur
     assembly, the dense camera solve, landmark back-substitution, cost
@@ -30,7 +34,10 @@ and, on a card, nvidia-smi's name and power limit):
     data sheet; the key replaces the reference's ``ici_bytes_per_sec``).
     Every row says ``"kind": "modeled"``.
   * measured: the KITTI-00-scale problem (256 x 65536 x 8, corridor
-    scene) with its peak device memory and, under ``spread``, the median,
+    scene) with the peak device memory of its race (on a card the
+    captured solves: the warm-up and the graphs' pools; each
+    ``measure_iters_per_sec`` frees its graphs) and, under ``spread``,
+    the median,
     min and max of five more races at ``base_iters=16`` (one race at 4
     swings between runs), and the threshold race (16, 32, 64
     and 128 cameras x 16384 x 8), which reports the smallest camera count
@@ -60,7 +67,9 @@ from ..config import BAConfig
 from ..core import lie
 from ..datasets import synthetic
 from ..optimizer import ba
-from ..utils.profiling import device_record, graph_ms, host_ms, synchronize
+from ..utils import jit
+from ..utils.profiling import (device_record, graph_ms, host_ms, synchronize,
+                               use_graph_stream)
 from . import device_arg
 
 LINK_BYTES_PER_S = 450e9        # H100 SXM NVLink 4, one direction
@@ -127,7 +136,9 @@ def measure_iters_per_sec(problem, K, assembly, base_iters=8):
     """Seconds per LM iteration by iteration-count differencing, and the
     BAStats of a 2n-iteration solve. Each run is perturbed (points + seed *
     1e-6) as the reference's are, after an unperturbed warm-up run of the
-    same length."""
+    same length (which, on a card, captures that length's graph). Ends by
+    dropping the solve graphs it cached in ``utils.jit``, so the next
+    measurement's memory starts empty; other cached graphs stay."""
     dev = problem.T_cw.device
     Kt = torch.as_tensor(K).to(dev)
 
@@ -147,17 +158,24 @@ def measure_iters_per_sec(problem, K, assembly, base_iters=8):
     t_n = timed(base_iters, 1)
     t_2n = timed(2 * base_iters, 2)
     per_iter = max(t_2n - t_n, 1e-9) / base_iters
-    return per_iter, run(2 * base_iters, 3)
+    stats = run(2 * base_iters, 3)
+    jit.clear_cache(lambda k: k[0] is ba._solve_impl)
+    return per_iter, stats
 
 
 def race_assemblies(problem, K, assemblies=("scatter", "onehot"),
                     base_iters=8):
+    """Each assembly's LM rate (``measure_iters_per_sec``) and last
+    solve; ``path`` says whether the solves replayed captured graphs
+    (``utils.jit.active``) or ran eagerly."""
+    path = "captured" if jit.active(problem.T_cw.device) else "eager"
     race = {}
     for assembly in assemblies:
         per_iter, stats = measure_iters_per_sec(problem, K, assembly,
                                                 base_iters=base_iters)
         accepted = stats.accepted.cpu().tolist()
         race[assembly] = {
+            "path": path,
             "sec_per_lm_iteration": round(per_iter, 6),
             "lm_iterations_per_sec": round(1.0 / per_iter, 2),
             "initial_cost": float(stats.initial_cost),
@@ -166,8 +184,8 @@ def race_assemblies(problem, K, assemblies=("scatter", "onehot"),
             "accepted": accepted,
             "costs": stats.costs.cpu().tolist(),
         }
-        print(f"assembly={assembly}: {per_iter * 1e3:.2f} ms/LM-iter "
-              f"({1.0 / per_iter:.1f} it/s)", flush=True)
+        print(f"assembly={assembly} ({path}): {per_iter * 1e3:.2f} "
+              f"ms/LM-iter ({1.0 / per_iter:.1f} it/s)", flush=True)
     return race
 
 
@@ -338,6 +356,9 @@ def threshold_race(device, cams=THRESHOLD_CAMS, base_iters=4):
 def run(device, skip_kitti_scale=False):
     """The single-device benchmark; returns the report."""
     n_cams, n_pts, k_obs = 20, 8192, 16
+    # on a card all of this run's work on one stream from the first
+    # (trap w, utils.profiling.use_graph_stream)
+    use_graph_stream(device)
     problem, K = make_problem(n_cams, n_pts, k_obs, device=device)
     result = {
         "problem": {"cams": n_cams, "points": n_pts, "obs_slots": k_obs},
@@ -346,6 +367,9 @@ def run(device, skip_kitti_scale=False):
     }
     race = race_assemblies(problem, K)
     result["assembly_race"] = race
+    if jit.active(device):
+        with jit.disable_jit():
+            result["assembly_race_eager"] = race_assemblies(problem, K)
     winner = _winner(race)
     result["single_chip"] = dict(race[winner], assembly=winner)
     result["speedup_vs_scatter"] = round(

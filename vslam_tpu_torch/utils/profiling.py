@@ -26,6 +26,7 @@ import glob
 import json
 import os
 import subprocess
+import threading
 import time
 from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
@@ -150,11 +151,15 @@ def use_graph_stream(device=None) -> Optional["torch.cuda.Stream"]:
     after them. On the H100 a graph whose work changed streams ran in a
     mode ~23% slower: a warm-up and capture on side streams with replays
     on the default stream; replays on their own stream while the
-    caller's work stayed on the default one; and, at random, the first
-    graph replayed right after this switch itself. So the package's entry
-    points on a card (``SLAMSystem``, ``tools.bench``,
-    ``ops.profile_step``) call it before their first work there, and
-    ``ChunkGraph.run`` and ``capture`` call it again (PERF.md §6)."""
+    caller's work stayed on the default one; and, for seconds after this
+    switch, the first graphs of a program whose own work had run on the
+    default stream before it (about a third of processes; none that
+    switched before their first work). So the package's entry points on a card
+    (``SLAMSystem``, ``tracker.init_state`` and ``bootstrap``,
+    ``tools.bench``, ``ops.profile_step``) call it before their first
+    work there, ``ChunkGraph.run`` and ``capture`` call it again, and a
+    program that works on the card before its first call of one of them
+    calls it first itself (PERF.md §6)."""
     if device is not None and torch.device(device).type != "cuda":
         return None
     s = graph_stream(device)
@@ -165,19 +170,42 @@ def use_graph_stream(device=None) -> Optional["torch.cuda.Stream"]:
     return s
 
 
+_LOCAL = threading.local()
+
+
+@contextmanager
+def disable_jit():
+    """Run ``utils.jit``'s entry points eagerly inside the block (in this
+    thread), as ``jax.disable_jit`` does; ``capture`` makes its graphs
+    under it. Public as ``utils.jit.disable_jit``."""
+    _LOCAL.depth = getattr(_LOCAL, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _LOCAL.depth -= 1
+
+
+def jit_disabled() -> bool:
+    """Whether this thread is inside ``disable_jit``."""
+    return bool(getattr(_LOCAL, "depth", 0))
+
+
 def capture(fn, generators=()) -> "torch.cuda.CUDAGraph":
     """``fn`` captured once as a CUDA graph on ``use_graph_stream()``,
     which stays the current stream, so the graph's replays go there too.
     ``fn`` runs once eagerly first (allocations and first-use work that a
-    capture forbids); ``generators`` are registered with the graph."""
+    capture forbids); ``generators`` are registered with the graph. Both
+    runs are under ``disable_jit``: an entry point ``fn`` calls runs
+    its eager body, which the graph records."""
     s = use_graph_stream()
-    fn()
-    torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    for gen in generators:
-        g.register_generator_state(gen)
-    with torch.cuda.graph(g, stream=s):
+    with disable_jit():
         fn()
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        for gen in generators:
+            g.register_generator_state(gen)
+        with torch.cuda.graph(g, stream=s):
+            fn()
     return g
 
 
