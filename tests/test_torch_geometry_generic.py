@@ -236,23 +236,18 @@ def test_ransac_fundamental_on_the_ports_generator():
 
 
 def test_summarize_trace_reads_device_trace(tmp_path):
-    """A CPU trace written by device_trace is found and totalled by name;
-    StageTimer records one time per stage."""
+    """A CPU trace written by device_trace is found and totalled by
+    name."""
     a = torch.randn(128, 128)
     with profiling.device_trace(str(tmp_path)):
         for _ in range(3):
-            b = a @ a
+            a @ a
     assert list(tmp_path.glob("*" + profiling.TRACE_SUFFIX))
     rows = profiling.summarize_trace(str(tmp_path))
     names = {name: (ms, n) for name, ms, n in rows}
     assert names["aten::mm"][1] == 3 and names["aten::mm"][0] > 0
     assert [r[1] for r in rows] == sorted((r[1] for r in rows),
                                           reverse=True)
-    timer = profiling.StageTimer()
-    for _ in range(2):
-        with timer.stage("mm", result=b):
-            b = a @ a
-    assert set(timer.summary()) == {"mm"} and len(timer.times["mm"]) == 2
 
 
 def test_bench_tools_agree_on_the_cpu():

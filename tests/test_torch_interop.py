@@ -4,7 +4,8 @@ the reference, and its independence from jax.
 ``vslam_tpu_torch`` keeps its own copies of ``config.py``,
 ``datasets/synthetic.py``, ``utils/evaluate.py`` and ``utils/metrics.py``
 because importing ``vslam_tpu`` loads jax, which a GPU host running the
-port need not have; these tests hold each copy equal to the original.
+port need not have; these tests hold each copy equal to the original
+(``utils/metrics.py``, which adds spans and host syncs, to what it logs).
 """
 import dataclasses
 import os
@@ -83,9 +84,8 @@ def test_evaluate_copy_equals_reference():
 
 
 def test_metrics_copy_equals_reference():
-    """The copy is the original file, byte for byte, and logs the same."""
-    a = (REPO / "vslam_tpu_torch/utils/metrics.py").read_text()
-    assert a == (REPO / "vslam_tpu/utils/metrics.py").read_text()
+    """The port's logger (the reference's plus spans and host syncs) logs
+    the same records and summary."""
     from vslam_tpu.utils.metrics import MetricsLogger as JLogger
     from vslam_tpu_torch.utils.metrics import MetricsLogger
     logs = []

@@ -102,8 +102,10 @@ def _t(a):
 
 
 def _infos(s, infos):
-    """A run's per-frame infos without wall time, and its BA events."""
-    strip = lambda d: {k: v for k, v in d.items() if k not in ("wall_s", "t")}
+    """A run's per-frame infos without wall time and spans, and its BA
+    events."""
+    strip = lambda d: {k: v for k, v in d.items()
+                       if k not in ("wall_s", "t", "spans")}
     events = [strip(r) for r in s.metrics.records
               if r.get("kind") in ("ba", "global_ba", "map_maintenance")]
     return [strip(x) for x in infos], events

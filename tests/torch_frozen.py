@@ -150,10 +150,15 @@ def tensors(obj, path=""):
     return out
 
 
+# what the frozen driver predates: the spans and sync count of a record,
+# the step graph's stage times and the solves' device times
+TRACING = ("spans", "syncs", "device_ms", "solve_device_ms")
+
+
 def strip(records):
-    """Records without the host clock's keys."""
-    return [{k: v for k, v in r.items() if k not in ("t", "wall_s",
-                                                     "capture_s")}
+    """Records without the host clock's keys and the tracing's."""
+    return [{k: v for k, v in r.items()
+             if k not in ("t", "wall_s", "capture_s") + TRACING}
             for r in records]
 
 

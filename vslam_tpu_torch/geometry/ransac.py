@@ -23,6 +23,7 @@ from ..core import lie
 from ..core.types import pick
 from ..ops import jacobi
 from ..utils import threefry
+from ..utils.profiling import mark
 
 
 class RansacResult(NamedTuple):
@@ -173,11 +174,16 @@ def ransac_pose_from_samples(idx, uv1, uv2, valid_mask, K,
                              fit_sweeps: int = 4, vote_stride: int = 6,
                              verify_stride: int = 4, topk: int = 16,
                              refine_iters: int = 10) -> PoseRansacResult:
-    """``ransac_pose`` on given (H, 8) minimal-sample indices."""
+    """``ransac_pose`` on given (H, 8) minimal-sample indices. Its stages
+    are ``utils.profiling.mark``ed: ``ransac.fit``, ``ransac.stage1``,
+    ``ransac.stage2`` and ``ransac.refine``."""
+    mark("ransac.fit")
     Fs = epipolar.fundamental_from_8pt(uv1[idx], uv2[idx], sweeps=fit_sweeps)
+    mark("ransac.stage1")
     combined_v, Rs, ts = _pose_stage1(Fs, uv1, uv2, valid_mask, K,
                                       inlier_threshold, verify_stride,
                                       vote_stride)
+    mark("ransac.stage2")
     # stage 2: full-N re-scoring of the top-k leaders. A stable descending
     # sort keeps the lower index first among ties, as jax.lax.top_k does.
     k = min(int(topk), idx.shape[0])
@@ -186,6 +192,7 @@ def ransac_pose_from_samples(idx, uv1, uv2, valid_mask, K,
         Fs[lead], Rs[lead], ts[lead], uv1, uv2, valid_mask, K,
         inlier_threshold)
     if refine:
+        mark("ransac.refine")
         F, R, t, inl, num = _pose_refine(R, t, inl, uv1, uv2, valid_mask, K,
                                          inlier_threshold, refine_iters)
     return PoseRansacResult(model=F, R=R, t=t, inliers=inl, num_inliers=num,

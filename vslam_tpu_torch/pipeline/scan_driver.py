@@ -58,7 +58,7 @@ from ..utils.jit import copy_into as _copy_into
 from ..utils.jit import fields as _fields
 from ..utils.jit import tensors as _tensors
 from ..utils.jit import tree_map as _map
-from ..utils.profiling import graph_nodes, use_graph_stream
+from ..utils.profiling import graph_nodes, recording_marks, use_graph_stream
 from . import keyframes as kf_mod
 from . import tracker
 
@@ -247,7 +247,9 @@ class ChunkGraph:
     With ``span=True`` the graph records a CUDA event (``external``) first
     and last, so ``span_ms`` reads the device time of the latest replay,
     from its first node to its last, without the host's time between
-    replays (which a profiler's per-node work inflates).
+    replays (which a profiler's per-node work inflates); and one at each
+    ``utils.profiling.mark`` the body passes (the step's stages), which
+    ``stage_ms`` reads. Without ``span`` the graph holds no event node.
     """
 
     def __init__(self, body, span: bool = False, mesh=None):
@@ -260,6 +262,7 @@ class ChunkGraph:
         self.replays = 0
         self.capture_s: Optional[float] = None
         self.pool_peak_bytes: Optional[int] = None
+        self.marks: list = []
 
     def _capture(self, state, store, x):
         # the body's own entry points run eagerly, in the warm-up too
@@ -302,7 +305,9 @@ class ChunkGraph:
         with torch.cuda.graph(graph, stream=torch.cuda.current_stream(dev)):
             if self.span:
                 self.events[0].record()
-            st, sr, row, out = self.body(self.state, self.store, self.slot)
+            with recording_marks(self.span) as self.marks:
+                st, sr, row, out = self.body(self.state, self.store,
+                                             self.slot)
             # an output that is an input buffer (the step's uv1 is the
             # state's prev.uv) is copied before the write-back overwrites it
             ins = {t.untyped_storage().data_ptr() for t in (
@@ -336,6 +341,25 @@ class ChunkGraph:
         """Device ms of the latest replay (``span=True``; waits for it)."""
         self.events[1].synchronize()
         return self.events[0].elapsed_time(self.events[1])
+
+    def stage_ms(self) -> dict:
+        """{stage: device ms} of the latest replay (``span=True``; waits
+        for it), from the body's ``utils.profiling.mark`` events: a stage
+        runs from its mark to the next one, the first from the graph's
+        first event, the last to its last event, so the undotted stages
+        sum to ``span_ms``. A dotted stage's prefix (``ransac`` of
+        ``ransac.fit``) also counts it, so it holds its whole stage."""
+        self.events[1].synchronize()
+        bounds = ([self.events[0]] + [ev for _, ev in self.marks[1:]]
+                  + [self.events[1]])
+        out: dict = {}
+        for (name, _), a, b in zip(self.marks, bounds, bounds[1:]):
+            ms = a.elapsed_time(b)
+            parts = name.split(".")
+            for i in range(1, len(parts) + 1):
+                k = ".".join(parts[:i])
+                out[k] = out.get(k, 0.0) + ms
+        return out
 
     def run(self, state, store, frames):
         """Track ``frames`` (T, ...) on the card. Returns (state, store,

@@ -11,6 +11,15 @@ what they write back re-enters as float32 on the system's device. The
 reference's comments give the measurements behind every guard and
 constant; this file keeps the what.
 
+Every host read of the driver goes through ``MetricsLogger.fetch``, which
+counts it, and each stretch of its host work is a ``MetricsLogger.span``:
+a frame's record holds its ``spans`` (upload, step, fetch, keyframe,
+structure, ba.build / gates / solve / guards / apply, maintenance) and
+``syncs`` (1 on an ordinary frame); with a step graph made with
+``span=True``, also ``device_ms``, the replay's device ms by stage. Window
+BA and structure refinement on a card time their solve with two CUDA
+events (``solve_device_ms`` in their records).
+
 On a card the system runs what ``jax.jit`` compiles in the reference as
 CUDA graphs: ``process`` replays one captured ``track_step``
 (``scan_driver.step_graph``, captured at the bootstrap frame) per frame,
@@ -73,6 +82,21 @@ def _np(x: torch.Tensor) -> np.ndarray:
 def _centers(T_cw: np.ndarray) -> np.ndarray:
     """Camera centers C = -R^T t of (W, 4, 4) world->camera transforms."""
     return -np.einsum("wji,wj->wi", T_cw[:, :3, :3], T_cw[:, :3, 3])
+
+
+def _record(events, i: int) -> None:
+    """Record ``events[i]`` (``SLAMSystem._timing_events``) on the current
+    stream; nothing without events."""
+    if events is not None:
+        events[i].record()
+
+
+def _solve_ms(events) -> Dict:
+    """A record's ``solve_device_ms``: the device ms between two recorded
+    timing events, read once a fetch has waited for them ({} without)."""
+    if events is None:
+        return {}
+    return {"solve_device_ms": events[0].elapsed_time(events[1])}
 
 
 def _window_gate_stats(problem: ba.BAProblem, sel_prov):
@@ -171,7 +195,11 @@ class SLAMSystem:
         info then holds the warm-up and capture's seconds as
         ``capture_s``."""
         t0 = time.perf_counter()
-        img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
+        m = self.metrics
+        m.begin()
+        with m.span("upload"):
+            img = torch.as_tensor(img, dtype=torch.float32,
+                                  device=self.device)
         g = self.step_graph
         if self.state is None:
             state = tracker.bootstrap(img, self.cfg, self.device,
@@ -184,18 +212,22 @@ class SLAMSystem:
                 # in this frame, not in the first tracked one
                 g.capture(self.state, None, img)
                 info["capture_s"] = g.capture_s
+            info.update(m.traced())
             info["wall_s"] = time.perf_counter() - t0
-            self.metrics.log(**info)
+            m.log(**info)
             self.frame_idx = 1
             return info
 
         fresh = g is not None and g.graph is None
-        self.state, out, row = scan_driver.track_frame(
-            self.state, img, self.cfg, g, mesh=self.mesh,
-            map_axis=self._map_axis)
+        with m.span("step"):
+            self.state, out, row = scan_driver.track_frame(
+                self.state, img, self.cfg, g, mesh=self.mesh,
+                map_axis=self._map_axis)
         self.last_output = out
         # one device->host transfer: the pose and every counter
-        sc = scan_driver.ChunkScalars.unpack(_np(row)[None])
+        sc = scan_driver.ChunkScalars.unpack(m.fetch(row)[None])
+        # the fetch waited for the replay, so its stage events are done
+        device_ms = g.stage_ms() if g is not None and g.span else None
         self.trajectory.append(sc.pose[0])
         counts = {k: int(getattr(sc, k)[0]) for k in _COUNTS}
         success = bool(sc.success[0])
@@ -207,17 +239,19 @@ class SLAMSystem:
         )
         ran_ba = False
         if is_kf and success:
-            self.kf_store = keyframes.insert_keyframe(
-                self.kf_store, self.state.pose,
-                torch.full((), self.frame_idx, dtype=torch.int32,
-                           device=self.device),
-                self.state.prev.uv, self.state.prev_map_id,
-                self.state.prev.mask)
+            with m.span("keyframe"):
+                self.kf_store = keyframes.insert_keyframe(
+                    self.kf_store, self.state.pose,
+                    torch.full((), self.frame_idx, dtype=torch.int32,
+                               device=self.device),
+                    self.state.prev.uv, self.state.prev_map_id,
+                    self.state.prev.mask)
             self._kf_count += 1
             se = self.cfg.ba.structure_every
             if (self.enable_ba and se > 0 and self._kf_count >= 3
                     and self._kf_count % se == 0):
-                self._refine_structure()
+                with m.span("structure"):
+                    self._refine_structure()
             if (self.enable_ba and self._kf_count >= 3
                     and self._kf_count % self.cfg.pipeline.local_ba_every
                     == 0):
@@ -227,18 +261,20 @@ class SLAMSystem:
         self.dropped_inserts_total += counts["num_dropped_inserts"]
         ran_maintenance = False
         if counts["map_size"] >= self._maint_high_water:
-            m2, pid2, obs2 = scan_driver._maintenance(
-                self.whole_map(), self.state.prev_map_id,
-                self.kf_store.obs_pid, self._maint_min_free)
-            self.state = self.state.replace(map=self._local(m2),
-                                            prev_map_id=pid2)
-            self.kf_store = self.kf_store.replace(
-                obs_pid=obs2, obs_mask=self.kf_store.obs_mask & (obs2 >= 0))
+            with m.span("maintenance"):
+                m2, pid2, obs2 = scan_driver._maintenance(
+                    self.whole_map(), self.state.prev_map_id,
+                    self.kf_store.obs_pid, self._maint_min_free)
+                self.state = self.state.replace(map=self._local(m2),
+                                                prev_map_id=pid2)
+                self.kf_store = self.kf_store.replace(
+                    obs_pid=obs2,
+                    obs_mask=self.kf_store.obs_mask & (obs2 >= 0))
+                size_after = int(m.fetch(m2.size))
             self.maintenance_runs += 1
             ran_maintenance = True
-            self.metrics.log(kind="map_maintenance", frame=self.frame_idx,
-                             size_before=counts["map_size"],
-                             size_after=int(m2.size))
+            m.log(kind="map_maintenance", frame=self.frame_idx,
+                  size_before=counts["map_size"], size_after=size_after)
 
         info = {"kind": "frame", "frame": self.frame_idx, **counts,
                 "scale": float(sc.scale[0]), "success": success,
@@ -246,8 +282,11 @@ class SLAMSystem:
                 "ran_maintenance": ran_maintenance}
         if fresh:
             info["capture_s"] = g.capture_s
+        if device_ms is not None:
+            info["device_ms"] = device_ms
+        info.update(m.traced())
         info["wall_s"] = time.perf_counter() - t0
-        self.metrics.log(**info)
+        m.log(**info)
         self.frame_idx += 1
         return info
 
@@ -268,9 +307,21 @@ class SLAMSystem:
         the per-frame driver picks. Structure refinement
         (``structure_every``) does not run here, as in the reference, nor
         does the sharded map (``mesh``).
+
+        Logs a ``kind: "chunk"`` record of what it returns, with the
+        chunk's ``spans`` (a root ``process_chunk`` span) and ``syncs``.
         """
         if self.mesh is not None:
             raise ValueError("process_chunk: single-device map only")
+        self.metrics.begin()
+        with self.metrics.span("process_chunk"):
+            info = self._chunk(inputs, render_fn)
+        info.update(self.metrics.traced())
+        self.metrics.log(kind="chunk", **info)
+        return info
+
+    def _chunk(self, inputs, render_fn) -> Dict:
+        """``process_chunk``'s work: what it returns, without the spans."""
         t0 = time.perf_counter()
         if not isinstance(inputs, torch.Tensor):
             inputs = np.asarray(inputs, np.float32)
@@ -303,7 +354,8 @@ class SLAMSystem:
             self._maint_high_water, self._maint_min_free,
             render_fn=render_fn, graph=graph)
         capture_s = graph.capture_s if fresh else 0.0
-        sc = scan_driver.ChunkScalars.unpack(_np(rows))  # one transfer
+        # one transfer
+        sc = scan_driver.ChunkScalars.unpack(self.metrics.fetch(rows))
         # tracking time: the frames' steps through the rows' arrival on
         # the host (the fetch synchronizes), without a capture
         track_s = time.perf_counter() - t1 - capture_s
@@ -347,29 +399,31 @@ class SLAMSystem:
 
     # ------------------------------------------------------------------
     @staticmethod
-    def _pin_window_gauge(wp, solved):
+    def _pin_window_gauge(wp, solved, fetch=_np):
         """Divide out the scale factor window BA applied to the free
         cameras: free-camera centers and the landmarks free cameras observe
         are rescaled about the newest anchored camera's center, unless
         >= 30 anchored-camera observations of non-provisional bridging
         landmarks show the scale direction is observed, or the factor is
-        within 2% of 1. Rotations are untouched. Returns (solved, s)."""
-        valid = _np(wp.win_valid)
-        fixed = _np(wp.problem.cam_fixed)
+        within 2% of 1. Rotations are untouched. ``fetch`` copies a tensor
+        to the host (``MetricsLogger.fetch``, which counts it). Returns
+        (solved, s)."""
+        valid = fetch(wp.win_valid)
+        fixed = fetch(wp.problem.cam_fixed)
         free = valid & ~fixed
         if free.sum() == 0 or (valid & fixed).sum() == 0:
             return solved, 1.0
-        obs_cam = _np(wp.problem.obs_cam)
-        obs_mask = _np(wp.problem.obs_mask)
-        pmask = _np(wp.problem.point_mask)
+        obs_cam = fetch(wp.problem.obs_cam)
+        obs_mask = fetch(wp.problem.obs_mask)
+        pmask = fetch(wp.problem.point_mask)
         obs_fixed = fixed[obs_cam] & obs_mask
         obs_free = (~fixed[obs_cam]) & obs_mask
         bridging = obs_fixed.any(axis=1) & obs_free.any(axis=1) & pmask
-        solid = bridging & ~_np(wp.sel_prov)
+        solid = bridging & ~fetch(wp.sel_prov)
         if int(obs_fixed[solid].sum()) >= 30:
             return solved, 1.0
-        T_cw_new = _np(solved.T_cw)
-        C_old = _centers(_np(wp.problem.T_cw))
+        T_cw_new = fetch(solved.T_cw)
+        C_old = _centers(fetch(wp.problem.T_cw))
         C_new = _centers(T_cw_new)
         # scale factor = median baseline ratio over consecutive valid pairs
         # whose later camera is free
@@ -395,7 +449,7 @@ class SLAMSystem:
         T_out[free, :3, 3] = t_fix[free]
         # rescale only landmarks observed by free cameras: anchored-only
         # ones were solved against unmoved poses
-        X = _np(solved.points)
+        X = fetch(solved.points)
         pt_free = obs_free.any(axis=1) & pmask
         X_fix = np.where(pt_free[:, None],
                          pivot[None] + (X - pivot[None]) / s, X)
@@ -417,14 +471,15 @@ class SLAMSystem:
         return n_obs < 8 * max(n_free, 1), n_obs, n_free
 
     @staticmethod
-    def _ba_event_accepted(wp, solved) -> tuple:
+    def _ba_event_accepted(wp, solved, fetch=_np) -> tuple:
         """Trust region on the whole (re-gauged) BA outcome: accept when the
         largest camera-center move lies between 8% (the correction
-        deadband) and 50% of the median inter-keyframe baseline. Returns
-        (accepted, max_move, median_baseline)."""
-        C_old = _centers(_np(wp.problem.T_cw))
-        C_new = _centers(_np(solved.T_cw))
-        valid = _np(wp.win_valid)
+        deadband) and 50% of the median inter-keyframe baseline; ``fetch``
+        as ``_pin_window_gauge`` takes it. Returns (accepted, max_move,
+        median_baseline)."""
+        C_old = _centers(fetch(wp.problem.T_cw))
+        C_new = _centers(fetch(solved.T_cw))
+        valid = fetch(wp.win_valid)
         move = np.linalg.norm(C_new - C_old, axis=1)[valid]
         steps = np.linalg.norm(np.diff(C_old[valid], axis=0), axis=1)
         baseline = float(np.median(steps)) if len(steps) else 1.0
@@ -461,81 +516,102 @@ class SLAMSystem:
         wp = keyframes.build_window_problem(
             self.kf_store, whole, cfg.replace(ba=ba_cfg),
             free_tail=0, prov_min_obs=2)
+        ev = self._timing_events()
+        _record(ev, 0)
         solved, stats = self._solve_robust(wp.problem, ba_cfg, reject_px=3.0,
                                            rounds=2)
+        _record(ev, 1)
         new_map, n_promoted = keyframes.apply_structure_result(
             whole, wp, solved,
             tracker._rad(0.5 * cfg.triangulation.promote_parallax_deg))
         self.state = self.state.replace(map=self._local(new_map))
-        init, fin, n = torch.stack([
+        init, fin, n = self.metrics.fetch(torch.stack([
             stats.initial_cost.double(), stats.final_cost.double(),
-            n_promoted.double()]).tolist()
+            n_promoted.double()])).tolist()
         self.metrics.log(kind="structure_refine", frame=self.frame_idx,
                          initial_cost=init, final_cost=fin,
-                         promoted=int(n))
+                         promoted=int(n), **_solve_ms(ev))
 
     # ------------------------------------------------------------------
     def _run_window_ba(self):
+        m = self.metrics
         # prov_min_obs=99: provisional landmarks stay out of the
         # pose-moving solve (estimating them is _refine_structure's job)
         whole = self.whole_map()
-        wp = keyframes.build_window_problem(
-            self.kf_store, whole, self.cfg,
-            free_tail=self.cfg.ba.free_cams, prov_min_obs=99)
-        # all pre-solve gate statistics in one transfer
-        n_obs, n_free, deep_obs, solid_obs = torch.stack(
-            _window_gate_stats(wp.problem, wp.sel_prov)).tolist()
-        # starvation guard (see _window_starved)
-        if n_obs < 8 * max(n_free, 1):
-            self.metrics.log(kind="ba", frame=self.frame_idx,
-                             skipped="starved", n_obs=n_obs, n_free=n_free,
-                             ba_result_accepted=False)
+        with m.span("ba.build"):
+            wp = keyframes.build_window_problem(
+                self.kf_store, whole, self.cfg,
+                free_tail=self.cfg.ba.free_cams, prov_min_obs=99)
+        with m.span("ba.gates"):
+            # all pre-solve gate statistics in one transfer
+            n_obs, n_free, deep_obs, solid_obs = m.fetch(torch.stack(
+                _window_gate_stats(wp.problem, wp.sel_prov))).tolist()
+            # starvation guard (see _window_starved)
+            starved = n_obs < 8 * max(n_free, 1)
+            # exploration gate: a pose-moving solve needs deep revisit
+            # evidence
+            shallow = deep_obs < 120
+        if starved:
+            m.log(kind="ba", frame=self.frame_idx, skipped="starved",
+                  n_obs=n_obs, n_free=n_free, ba_result_accepted=False)
             return
-        # exploration gate: a pose-moving solve needs deep revisit evidence
-        if deep_obs < 120:
-            self.metrics.log(kind="ba", frame=self.frame_idx,
-                             skipped="shallow", deep_obs=deep_obs,
-                             ba_result_accepted=False)
+        if shallow:
+            m.log(kind="ba", frame=self.frame_idx, skipped="shallow",
+                  deep_obs=deep_obs, ba_result_accepted=False)
             return
-        solved, stats = self._solve_robust(wp.problem, self.cfg.ba,
-                                           reject_px=5.0, rounds=2)
-        solved, gauge_s = self._pin_window_gauge(wp, solved)
-        ba_accepted, max_move, baseline = self._ba_event_accepted(wp, solved)
+        ev = self._timing_events()
+        with m.span("ba.solve"):
+            _record(ev, 0)
+            solved, stats = self._solve_robust(wp.problem, self.cfg.ba,
+                                               reject_px=5.0, rounds=2)
+            _record(ev, 1)
+        with m.span("ba.guards"):
+            solved, gauge_s = self._pin_window_gauge(wp, solved, m.fetch)
+            ba_accepted, max_move, baseline = self._ba_event_accepted(
+                wp, solved, m.fetch)
         s_corr = 1.0
         if ba_accepted:
-            self.kf_store, new_map, T_corr = keyframes.apply_window_result(
-                self.kf_store, whole, wp, solved)
-            # re-gauge the motion model from the newest keyframe gap, only
-            # where the window's scale direction is observed
-            idx = np.where(_np(wp.win_valid))[0]
-            if (self.cfg.ba.rescale_motion_model and solid_obs >= 30
-                    and len(idx) >= 2):
-                C_old = _centers(_np(wp.problem.T_cw))
-                C_new = _centers(_np(solved.T_cw))
-                a, b = idx[-2], idx[-1]
-                g_old = float(np.linalg.norm(C_old[b] - C_old[a]))
-                g_new = float(np.linalg.norm(C_new[b] - C_new[a]))
-                if g_old > 1e-6 and g_new > 1e-6:
-                    s_corr = float(np.clip(g_new / g_old, 0.5, 2.0))
-            vel = self.state.vel.clone()
-            vel[:3, 3] *= s_corr
-            self.state = self.state.replace(
-                map=self._local(new_map), pose=T_corr @ self.state.pose,
-                vel=vel,
-                scale=(self.state.scale.double() * s_corr).float())
+            with m.span("ba.apply"):
+                self.kf_store, new_map, T_corr = \
+                    keyframes.apply_window_result(self.kf_store, whole, wp,
+                                                  solved)
+                # re-gauge the motion model from the newest keyframe gap,
+                # only where the window's scale direction is observed
+                idx = np.where(m.fetch(wp.win_valid))[0]
+                if (self.cfg.ba.rescale_motion_model and solid_obs >= 30
+                        and len(idx) >= 2):
+                    C_old = _centers(m.fetch(wp.problem.T_cw))
+                    C_new = _centers(m.fetch(solved.T_cw))
+                    a, b = idx[-2], idx[-1]
+                    g_old = float(np.linalg.norm(C_old[b] - C_old[a]))
+                    g_new = float(np.linalg.norm(C_new[b] - C_new[a]))
+                    if g_old > 1e-6 and g_new > 1e-6:
+                        s_corr = float(np.clip(g_new / g_old, 0.5, 2.0))
+                vel = self.state.vel.clone()
+                vel[:3, 3] *= s_corr
+                self.state = self.state.replace(
+                    map=self._local(new_map), pose=T_corr @ self.state.pose,
+                    vel=vel,
+                    scale=(self.state.scale.double() * s_corr).float())
         self.last_ba_stats = stats
-        init, fin, n_acc, d_pts, d_obs, evicted = torch.stack([
+        init, fin, n_acc, d_pts, d_obs, evicted = m.fetch(torch.stack([
             stats.initial_cost.double(), stats.final_cost.double(),
             stats.accepted.sum().double(), wp.n_dropped_points.double(),
             wp.n_dropped_obs.double(),
-            wp.n_evicted_keyframes.double()]).tolist()
-        self.metrics.log(
-            kind="ba", frame=self.frame_idx, initial_cost=init,
-            final_cost=fin, accepted=int(n_acc),
-            ba_result_accepted=ba_accepted, max_cam_move=max_move,
-            median_baseline=baseline, gauge_s=gauge_s, scale_corr=s_corr,
-            dropped_points=int(d_pts), dropped_obs=int(d_obs),
-            evicted_keyframes=int(evicted))
+            wp.n_evicted_keyframes.double()])).tolist()
+        m.log(kind="ba", frame=self.frame_idx, initial_cost=init,
+              final_cost=fin, accepted=int(n_acc),
+              ba_result_accepted=ba_accepted, max_cam_move=max_move,
+              median_baseline=baseline, gauge_s=gauge_s, scale_corr=s_corr,
+              dropped_points=int(d_pts), dropped_obs=int(d_obs),
+              evicted_keyframes=int(evicted), **_solve_ms(ev))
+
+    def _timing_events(self):
+        """Two timing CUDA events on a card (``_record`` puts them on the
+        current stream, the graph stream), None elsewhere."""
+        if self.device.type != "cuda":
+            return None
+        return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
 
     # ------------------------------------------------------------------
     def run_global_ba(self, mesh=None, axis_name: str = "map",
@@ -549,11 +625,25 @@ class SLAMSystem:
 
         With ``mesh``, as in the reference, the rejection rounds run on
         one device (every rank, replicated), then the landmark-sharded
-        solve over ``axis_name`` (``parallel.sharded_ba``)."""
+        solve over ``axis_name`` (``parallel.sharded_ba``).
+
+        Its ``kind: "global_ba"`` record holds a root ``global_ba`` span
+        and the syncs."""
+        self.metrics.begin()
+        with self.metrics.span("global_ba"):
+            stats, rec = self._global_ba(mesh, axis_name, iterations,
+                                         reject_px, huber_delta)
+        self.metrics.log(kind="global_ba", **rec, **self.metrics.traced())
+        return stats
+
+    def _global_ba(self, mesh, axis_name, iterations, reject_px,
+                   huber_delta):
+        """``run_global_ba``'s work: (stats, its record's fields)."""
         cfg = self.cfg
-        pid = _np(self.kf_store.obs_pid)
-        msk = _np(self.kf_store.obs_mask) \
-            & (_np(self.kf_store.kf_order) >= 0)[:, None]
+        fetch = self.metrics.fetch
+        pid = fetch(self.kf_store.obs_pid)
+        msk = fetch(self.kf_store.obs_mask) \
+            & (fetch(self.kf_store.kf_order) >= 0)[:, None]
         live = pid[msk & (pid >= 0)]
         if live.size:
             n_unique = int(np.unique(live).size)
@@ -588,18 +678,17 @@ class SLAMSystem:
         self.state = self.state.replace(map=self._local(new_map),
                                         pose=T_corr @ self.state.pose)
         self.last_ba_stats = stats
-        d_pts, d_obs, evicted = torch.stack([
+        d_pts, d_obs, evicted = fetch(torch.stack([
             wp.n_dropped_points, wp.n_dropped_obs,
-            wp.n_evicted_keyframes.to(torch.int32)]).tolist()
+            wp.n_evicted_keyframes.to(torch.int32)])).tolist()
         self.last_global_ba_coverage = {
             "max_points": P, "obs_slots": Kslots,
             "unique_landmarks": n_unique, "dropped_points": d_pts,
             "dropped_obs": d_obs, "evicted_keyframes": evicted}
-        self.metrics.log(kind="global_ba",
-                         initial_cost=float(stats.initial_cost),
-                         final_cost=float(stats.final_cost),
-                         **self.last_global_ba_coverage)
-        return stats
+        init, fin = fetch(torch.stack([stats.initial_cost.double(),
+                                       stats.final_cost.double()])).tolist()
+        return stats, dict(initial_cost=init, final_cost=fin,
+                           **self.last_global_ba_coverage)
 
     # ------------------------------------------------------------------
     def poses(self) -> np.ndarray:

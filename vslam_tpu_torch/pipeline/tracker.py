@@ -39,7 +39,7 @@ from ..matching import matcher
 from ..matching.hamming import hamming_pairwise
 from ..parallel.mesh import capturable
 from ..utils import jit, threefry
-from ..utils.profiling import use_graph_stream
+from ..utils.profiling import mark, use_graph_stream
 
 
 @dataclasses.dataclass
@@ -291,6 +291,10 @@ def _step_impl(state: TrackerState, img, cfg: VSLAMConfig, ops: MapOps,
     ``pose_fn``: optional replacement for the relative-pose stage, with the
     signature of ``ransac.ransac_pose`` (the parity tests inject the
     reference's RANSAC samples through it).
+
+    Its stages are ``utils.profiling.mark``ed (features, match, ransac,
+    triangulate, observe, associate, pnp, insert): a step graph captured
+    with ``span=True`` times each (``scan_driver.ChunkGraph.stage_ms``).
     """
     H, W = cfg.camera.height, cfg.camera.width
     dev = state.pose.device
@@ -300,6 +304,7 @@ def _step_impl(state: TrackerState, img, cfg: VSLAMConfig, ops: MapOps,
     GC = ops.global_capacity
     img = torch.as_tensor(img, dtype=torch.float32, device=dev)
 
+    mark("features")
     # 1. features; 1b. with track_carry every valid keypoint is carried at
     # its flow-extrapolated pixel, mapped ones at their landmark's
     # projection through the constant-velocity pose
@@ -323,6 +328,7 @@ def _step_impl(state: TrackerState, img, cfg: VSLAMConfig, ops: MapOps,
     else:
         feats = extract_features(img, cfg.frontend, H, W)
 
+    mark("match")
     # 2. frame-to-frame matching, guided by keypoint pixels
     mres = matcher.match(state.prev.desc, state.prev.mask, feats.desc,
                          feats.mask, cfg.matching, uv1=state.prev.uv,
@@ -332,6 +338,7 @@ def _step_impl(state: TrackerState, img, cfg: VSLAMConfig, ops: MapOps,
     uv2 = feats.uv[idx2]
     m_valid = mres.mask
 
+    mark("ransac")
     # 3. robust F -> E -> (R, t)
     key = state.key
     if isinstance(key, torch.Tensor):
@@ -345,6 +352,7 @@ def _step_impl(state: TrackerState, img, cfg: VSLAMConfig, ops: MapOps,
     R, t_unit, votes = rres.R, rres.t, rres.votes
     pose_ok = rres.success
 
+    mark("triangulate")
     # 4. monocular scale from re-observed map points
     P1_rel = torch.cat([K, torch.zeros((3, 1), **f32)], dim=1)
     P2_rel = K @ torch.cat([R, t_unit[:, None]], dim=1)
@@ -383,6 +391,7 @@ def _step_impl(state: TrackerState, img, cfg: VSLAMConfig, ops: MapOps,
     new_pose = torch.where(pose_ok, state.pose @ T_c1c2,
                            state.pose @ state.vel)
 
+    mark("observe")
     # 6. map-id propagation along matches (idx2 is unique among valid rows:
     # the cross-check guarantees it, so the scatters below never collide)
     prop_src = torch.where(m_valid & (pid_prev >= 0), pid_prev, -1)
@@ -421,6 +430,7 @@ def _step_impl(state: TrackerState, img, cfg: VSLAMConfig, ops: MapOps,
     new_map = ops.observe(state.map, map_id2, feats.desc, map_id2 >= 0,
                           state.frame_idx)
 
+    mark("associate")
     # 7. search-by-projection association around the candidate pose
     P2 = cam.projection_matrix(K, new_pose)
     kp_free = feats.mask & (map_id2 < 0)
@@ -428,6 +438,7 @@ def _step_impl(state: TrackerState, img, cfg: VSLAMConfig, ops: MapOps,
                           state.frame_idx)
     assoc_found = assoc.point_id >= 0
 
+    mark("pnp")
     # 7b. PnP map tracking, maturity-weighted; full authority when
     # relocalizing (pose_ok false)
     pnp_ids = torch.where(assoc_found, assoc.point_id, map_id2)
@@ -467,6 +478,7 @@ def _step_impl(state: TrackerState, img, cfg: VSLAMConfig, ops: MapOps,
     new_map = ops.observe(new_map, assoc.point_id, feats.desc, assoc_ok,
                           state.frame_idx)
 
+    mark("insert")
     # 8. delayed triangulation against each track's first observation
     P2 = cam.projection_matrix(K, new_pose)
     C2 = new_pose[:3, 3]

@@ -4,6 +4,13 @@ The reference's observability is two printfs (reference src/vslam.cpp:278,
 src/PointMap.cpp:33). Here: a JSONL metrics stream with per-stage wall times
 and the counters SURVEY.md §5 calls for (inliers, associations, map size,
 track health, fps).
+
+Beside the records the logger keeps the host's spans and syncs of the
+record being built: ``span(name)`` stamps a stretch of host work with
+``time.time_ns()`` (the clock of ``torch.profiler``'s events, so spans line
+up with a device trace), and ``fetch`` is the driver's one way to copy
+device data to the host, counting each call as one sync. ``begin`` starts
+a record's spans and count; ``traced`` hands them over for the record.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ class MetricsLogger:
         self.path = path
         self.records: List[Dict[str, Any]] = []
         self._fh = open(path, "a") if path else None
+        self.begin()
 
     def log(self, **kv):
         rec = dict(kv)
@@ -27,11 +35,44 @@ class MetricsLogger:
             self._fh.write(json.dumps(rec) + "\n")
             self._fh.flush()
 
+    def begin(self):
+        """Start a new record's spans and sync count."""
+        self.spans: List[list] = []
+        self.syncs = 0
+
+    def traced(self) -> Dict[str, Any]:
+        """The spans ([name, start_ns, end_ns] in start order; they may
+        nest) and the syncs since ``begin``, as a record's fields."""
+        return {"spans": self.spans, "syncs": self.syncs}
+
     @contextmanager
-    def timer(self, name: str):
-        t0 = time.perf_counter()
-        yield
-        self.log(stage=name, wall_s=time.perf_counter() - t0)
+    def span(self, name: str):
+        """Record the enclosed host work as a span (``time.time_ns()``)."""
+        s = [name, time.time_ns(), None]
+        self.spans.append(s)
+        try:
+            yield
+        finally:
+            s[2] = time.time_ns()
+
+    def fetch(self, *tensors):
+        """Host numpy copies of ``tensors`` (the array itself for one
+        tensor, else a tuple) in one host sync, which it counts; recorded
+        as a ``fetch`` span. Several tensors of a card are copied
+        asynchronously and waited for once."""
+        with self.span("fetch"):
+            if len(tensors) == 1:
+                out = tensors[0].detach().cpu().numpy()
+            else:
+                host = [t.detach().to("cpu", non_blocking=True)
+                        for t in tensors]
+                dev = tensors[0].device
+                if dev.type == "cuda":
+                    import torch
+                    torch.cuda.current_stream(dev).synchronize()
+                out = tuple(h.numpy() for h in host)
+        self.syncs += 1
+        return out
 
     def close(self):
         if self._fh:

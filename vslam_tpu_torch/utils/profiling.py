@@ -5,8 +5,9 @@
 activity where a card is present) and writes it as Chrome-trace JSON;
 ``summarize_trace`` totals the trace's complete events by name, so hotspots
 can be read without a trace viewer (``print_trace_summary`` prints them).
-``StageTimer`` takes coarse host-clock
-stage times, fenced by ``torch.cuda.synchronize``. ``event_ms`` and
+``mark`` names a stage boundary inside a step graph captured with
+``span=True`` (``scan_driver.ChunkGraph``), which times each stage of a
+replay by CUDA events (``ChunkGraph.stage_ms``). ``event_ms`` and
 ``graph_ms`` give device times from CUDA events, for ``ops.bench_kernels``,
 ``ops.bench_stages`` and ``chip_smoke.py``'s graph timing (``capture``
 makes the graph on ``graph_stream``, ``use_graph_stream`` keeps a
@@ -32,7 +33,6 @@ from contextlib import contextmanager
 from typing import Dict, List, Optional, Tuple
 
 import torch
-from torch.utils._pytree import tree_leaves
 
 TRACE_SUFFIX = ".pt.trace.json"
 
@@ -75,32 +75,6 @@ def summarize_trace(outdir: str, top: int = 30
 def print_trace_summary(outdir: str, top: int = 30) -> None:
     for name, ms, cnt in summarize_trace(outdir, top):
         print(f"{ms:10.2f} ms  x{cnt:5d}  {name[:110]}")
-
-
-class StageTimer:
-    """Host-clock stage timing. Work on a card is asynchronous: a stage
-    ends with ``torch.cuda.synchronize`` of the devices its ``result``
-    tensors lie on (of the current device when no result is given and CUDA
-    is in use), so its time is attributable."""
-
-    def __init__(self):
-        self.times: Dict[str, List[float]] = {}
-
-    @contextmanager
-    def stage(self, name: str, result=None):
-        t0 = time.perf_counter()
-        yield
-        if result is not None:
-            devs = {t.device for t in tree_leaves(result)
-                    if isinstance(t, torch.Tensor) and t.is_cuda}
-            for d in devs:
-                torch.cuda.synchronize(d)
-        elif torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        self.times.setdefault(name, []).append(time.perf_counter() - t0)
-
-    def summary(self) -> Dict[str, float]:
-        return {k: sum(v) / len(v) for k, v in self.times.items()}
 
 
 def event_ms(fn, reps: int = 20, warmup: int = 1) -> float:
@@ -188,6 +162,36 @@ def disable_jit():
 def jit_disabled() -> bool:
     """Whether this thread is inside ``disable_jit``."""
     return bool(getattr(_LOCAL, "depth", 0))
+
+
+def mark(name: str) -> None:
+    """A stage boundary: the stage ``name`` starts here. Inside the capture
+    of a ``scan_driver.ChunkGraph`` made with ``span=True`` it records an
+    external timing CUDA event into the graph; anywhere else it does
+    nothing. A dotted name (``ransac.fit``) is a part of the stage its
+    prefix names."""
+    marks = getattr(_LOCAL, "marks", None)
+    if marks is None:
+        return
+    ev = torch.cuda.Event(enable_timing=True, external=True)
+    ev.record()
+    marks.append((name, ev))
+
+
+@contextmanager
+def recording_marks(on: bool = True):
+    """Collect the ``mark`` calls of the enclosed capture (this thread):
+    yields the list of (name, event) they append to, which stays empty
+    when ``on`` is false."""
+    marks = []
+    if not on:
+        yield marks
+        return
+    _LOCAL.marks = marks
+    try:
+        yield marks
+    finally:
+        _LOCAL.marks = None
 
 
 def capture(fn, generators=()) -> "torch.cuda.CUDAGraph":
