@@ -19,6 +19,12 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
      near-duplicates (hits in both tiers), 3072 keypoints, exact; its time
      and bound at each size; then a flood (every pair inside the gate) that
      overflows the kernel's queues in every block, exact;
+ 4j. the Jacobi kernel (``csrc/jacobi.cu``) vs the torch loop it
+     replaces, bit for bit, at each of the tracking step's 8 calls
+     (``ops.jacobi.STEP_CALLS``) on the inputs a default-config step builds
+     (RANSAC's fits, stage 1 and LO, both triangulations), one launch a
+     call; each call's kernel, loop and torch.linalg.eigh times and the
+     kernel's bound from that call's bytes and operations;
   5. the tracking step on CUDA vs on the CPU (plain versions), small
      config, the same injected RANSAC samples, per-frame tolerances;
   6. the tracking step: bootstrap + 11 ``track_step`` of the default config
@@ -159,12 +165,14 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
      then phase 6's cached replay held to its replays: one mode, the
      slowest of the four device ms within 3% of the fastest; (b)
      ``ops.profile_step`` over 6 replays at map 51200 under
-     ``torch.profiler``: kernel events in the trace, K1 and K2 once per
-     frame, the kernels' total within 0.95-1.10 of the replays' device
-     ms (CUDA events inside the graph, the same frames run untraced just
-     before; the ratio printed), the by-class and top-kernel tables, and
-     each stage of ``ops.bench_stages`` captured alone with its kernel
-     count; (c) 8 fresh captures of the carried step at map 51200 (6
+     ``torch.profiler``, in a spawned process (once the profiler has run
+     in a process, the step graphs captured there replay slower, so (c)'s
+     captures here must not follow it): kernel events in the trace, K1 and
+     K2 once per frame and the Jacobi kernel 8 times, the kernels' total
+     within 0.95-1.10 of the replays' device ms (CUDA events inside the
+     graph, the same frames run untraced just before; the ratio
+     printed), the by-class and top-kernel tables, and each stage of
+     ``ops.bench_stages`` captured alone with its kernel count; (c) 8 fresh captures of the carried step at map 51200 (6
      here, 2 in spawned processes), each one's nodes by type (equal in
      all) and median replay device ms over 24 replays: one mode, the
      slowest median within 3% of the fastest, 2 of them in spawned
@@ -175,7 +183,8 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
      first entry point (README, trap w).
 
 Each phase prints its seconds. The line before the last but one is one
-JSON object per kernel (route, source, the TPU kernel it replaces, launches
+JSON object per hand kernel, K1, K2 and the Jacobi kernel (route, source,
+the reference code it replaces, launches
 on the main path of phase 8 (captured launches times replays), on the
 tracking step of phase 6 (its cached graph's, likewise), in phase 11's
 chunks, in phase 13's two runs
@@ -183,7 +192,9 @@ chunks, in phase 13's two runs
 and in phase 14d's batched steps, in phase 15a's endurance run and in
 phase 17a's bench (each captured launches times replays), max |error|
 vs the plain version, kernel, plain and library times, and the bound with
-what bounds it); then the nvidia-smi line; the
+what bounds it; the Jacobi kernel's times and bound are the sums of phase
+4j's 8 calls, one frame's, listed under ``calls``); then the nvidia-smi
+line; the
 last line is ``{"ok": true, "device": {...}}``. No GPU: exits 2 and prints
 no result.
 """
@@ -271,6 +282,16 @@ def _bound(n_bytes, n_ops, ops_per_s):
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+# the hand kernels' launches in one tracking step of the default config:
+# K1 and K2 once, the Jacobi kernel 8 times (ops.jacobi.STEP_CALLS)
+STEP_LAUNCHES = {"hamming": 1, "associate": 1, "jacobi": 8}
+
+
+def _per_step(steps):
+    """The hand kernels' launches in ``steps`` tracking steps."""
+    return {k: v * steps for k, v in STEP_LAUNCHES.items()}
 
 
 def _flip_bits(rng, words_i32, n_bits):
@@ -556,6 +577,71 @@ def check_k2(torch, dev, cfg, failures):
                 plain_ms_by_size=by_size("plain_ms")), first
 
 
+def check_jacobi(torch, dev, failures):
+    """Phase 4j: the Jacobi kernel (``csrc/jacobi.cu``) bit for bit against
+    the torch loop it replaces (``jacobi_eigh_plain``) at each of the
+    tracking step's calls (``jacobi.STEP_CALLS``), on the inputs a
+    default-config step builds (``ops.bench_kernels.step_eigh_inputs``:
+    RANSAC's fits, stage 1 and LO, then both triangulations), one launch
+    a call; each call's kernel, loop and torch.linalg.eigh times (single
+    calls) and the kernel's bound from that call's bytes and operations
+    (``bench_kernels.eigh_work``). The returned figures sum the calls: one
+    frame's Jacobi work."""
+    from vslam_tpu_torch.ops import bench_kernels as bk
+    from vslam_tpu_torch.ops import jacobi
+
+    calls = bk.step_eigh_inputs(dev)
+    shapes = [(tuple(A.shape), s) for A, s in calls]
+    if shapes != list(jacobi.STEP_CALLS):
+        failures.append(f"J: the step's calls {shapes} are not "
+                        f"jacobi.STEP_CALLS")
+    rows, err, work = [], 0.0, [0, 0]
+    for A, sweeps in calls:
+        before = jacobi.launches
+        w, V = jacobi.jacobi_eigh(A, sweeps)
+        launched = jacobi.launches - before
+        w_p, V_p = jacobi.jacobi_eigh_plain(A, sweeps)
+        same = bk.bits_equal(w, w_p) and bk.bits_equal(V, V_p)
+        for x, y in ((w, w_p), (V, V_p)):
+            num = torch.isfinite(x) & torch.isfinite(y)
+            err = max(err, float(torch.where(num, (x - y).abs(), 0.0).max()))
+        label = f"{'x'.join(map(str, A.shape))}@{sweeps}"
+        if not same or launched != 1:
+            failures.append(f"J {label}: kernel bit-equal to the loop "
+                            f"{same}, {launched} launches")
+        ms = _time_each_ms(torch, lambda: jacobi.jacobi_eigh(A, sweeps))
+        plain_ms = _time_each_ms(
+            torch, lambda: jacobi.jacobi_eigh_plain(A, sweeps), reps=5)
+        library_ms = _time_each_ms(torch, lambda: torch.linalg.eigh(A),
+                                   reps=5)
+        n_bytes, n_ops = bk.eigh_work(A.shape, sweeps)
+        work[0] += n_bytes
+        work[1] += n_ops
+        bound_ms, bound_by = _bound(n_bytes, n_ops, F32_OPS_PER_S)
+        print(f"J {label}: kernel bit-equal to the loop {same}; kernel "
+              f"{ms:.4f} ms, loop {plain_ms:.4f} ms, torch.linalg.eigh "
+              f"{library_ms:.4f} ms (single calls); bound {bound_ms:.3g} ms "
+              f"({bound_by}: {n_ops / 1e6:.3f} M f32 ops at 67 TFLOP/s, "
+              f"{n_bytes / 1e6:.4f} MB at 3.35 TB/s); share "
+              f"{bound_ms / ms:.3g}")
+        rows.append(dict(call=label, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by))
+    total = lambda key: sum(r[key] for r in rows)
+    # the frame's calls as one piece of work: its bytes and its operations
+    bound_ms, bound_by = _bound(*work, F32_OPS_PER_S)
+    print(f"J per frame ({len(rows)} calls): kernel {total('ms'):.4f} ms, "
+          f"loop {total('plain_ms'):.4f} ms, torch.linalg.eigh "
+          f"{total('library_ms'):.4f} ms; bound {bound_ms:.3g} ms "
+          f"({bound_by}); max |kernel - loop| {err}")
+    print("J library: torch.linalg.eigh is a converged solver, so its "
+          "eigenpairs are not the loop's fixed-sweep ones (a yardstick of "
+          "time only)")
+    return dict(max_abs_err=err, ms=total("ms"), plain_ms=total("plain_ms"),
+                library_ms=total("library_ms"), bound_ms=bound_ms,
+                bound_by=bound_by, calls=rows)
+
+
 def _render(cfg, n_frames, scene_kw, step, seed, **traj_kw):
     from vslam_tpu_torch.datasets import synthetic
 
@@ -662,9 +748,8 @@ def run_main_path(torch, dev, failures):
     frame must take under a quarter of the eager one. Prints both
     ms/frame (host clock, synchronized) and the cached replay's device
     ms (CUDA events inside the graph). Returns (launches, record)."""
+    from vslam_tpu_torch import ops
     from vslam_tpu_torch.config import VSLAMConfig
-    from vslam_tpu_torch.ops import associate as k2
-    from vslam_tpu_torch.ops import hamming
     from vslam_tpu_torch.pipeline import tracker
     from vslam_tpu_torch.utils import evaluate, jit
 
@@ -707,21 +792,19 @@ def run_main_path(torch, dev, failures):
         torch.cuda.synchronize()
         return st, outs, 1e3 * (time.perf_counter() - t0) / (n_frames - 1)
 
-    hamming.launches = 0
-    k2.launches = 0
+    ops.reset_launches()
     replays0 = g.replays
     st, outs, ms_frame = steps()
     replay_ms = g.span_ms()
-    counted = {"hamming": hamming.launches, "associate": k2.launches}
+    counted = ops.launch_counts()
     replays = g.replays - replays0
     launches = {k: v * replays for k, v in g.captured_launches.items()}
 
-    hamming.launches = 0
-    k2.launches = 0
+    ops.reset_launches()
     with warnings.catch_warnings(record=True) as caught, jit.disable_jit():
         warnings.simplefilter("always")
         st_e, eager, ms_eager = steps(warn=True)
-    eager_launches = {"hamming": hamming.launches, "associate": k2.launches}
+    eager_launches = ops.launch_counts()
     syncs = sorted({f"{w.filename}:{w.lineno}: {w.message}" for w in caught
                     if "called a synchronizing" in str(w.message)})
     differs = _outs_differ(torch, outs, eager) + [
@@ -846,13 +929,11 @@ def _process_run(torch, s, frames, gt, label, failures):
     run fails unless the graph replayed once per tracked frame with K1 and
     K2 captured once each. Returns (run record, launches, ms/frame by frame
     kind)."""
-    from vslam_tpu_torch.ops import associate as k2
-    from vslam_tpu_torch.ops import hamming
+    from vslam_tpu_torch import ops
     from vslam_tpu_torch.utils import evaluate
 
     n_frames = frames.shape[0]
-    hamming.launches = 0
-    k2.launches = 0
+    ops.reset_launches()
     infos, wall, syncs, sites = [], [], [], []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -869,7 +950,7 @@ def _process_run(torch, s, frames, gt, label, failures):
                     if "called a synchronizing" in str(w.message)]
             syncs.append(len(mine))
             sites.append(mine)
-    launches = {"hamming": hamming.launches, "associate": k2.launches}
+    launches = ops.launch_counts()
     g = s.step_graph
     if g is not None:
         counted = launches
@@ -879,9 +960,9 @@ def _process_run(torch, s, frames, gt, label, failures):
               f"kernels captured {g.captured_launches}, replays "
               f"{g.replays}, launches {launches} (wrapper counters "
               f"{counted}: the warm-up and the capture)")
-        if g.captured_launches != {"hamming": 1, "associate": 1}:
+        if g.captured_launches != STEP_LAUNCHES:
             failures.append(f"{label}: kernels captured "
-                            f"{g.captured_launches}, want one of each")
+                            f"{g.captured_launches}, want {STEP_LAUNCHES}")
         if g.replays != n_frames - 1:
             failures.append(f"{label}: the step graph replayed {g.replays} "
                             f"times in {n_frames - 1} tracked frames")
@@ -1270,18 +1351,16 @@ def _chunked_run(torch, dev, cfg, ref, label, failures):
     launches (captured times replays), chunked ms/frame (host clock over
     each chunk's replays through the one fetch of its rows, capture
     excluded), capture seconds, graph pool peak)."""
-    from vslam_tpu_torch.ops import associate as k2
-    from vslam_tpu_torch.ops import hamming
+    from vslam_tpu_torch import ops
     from vslam_tpu_torch.pipeline.slam import SLAMSystem
 
     frames = ref["frames"]
     n = frames.shape[0]
     align = cfg.pipeline.keyframe_every * cfg.pipeline.local_ba_every
     s = SLAMSystem(cfg, dev)
-    hamming.launches = 0
-    k2.launches = 0
+    ops.reset_launches()
     res, syncs = _chunks(torch, s, frames, (align + 1, n - align - 1))
-    counted = {"hamming": hamming.launches, "associate": k2.launches}
+    counted = ops.launch_counts()
     g = s.chunk_graphs[None]
     launches = {k: v * g.replays for k, v in g.captured_launches.items()}
     print(f"{label}: capture {g.capture_s:.2f} s (eager warm-up + capture), "
@@ -1291,9 +1370,9 @@ def _chunked_run(torch, dev, cfg, ref, label, failures):
           f"warm-up and one capture); host syncs per process_chunk call "
           f"{syncs} (the rows' fetch, BA's own; 0 inside the replay loop, "
           f"enforced)")
-    if g.captured_launches != {"hamming": 1, "associate": 1}:
+    if g.captured_launches != STEP_LAUNCHES:
         failures.append(f"{label}: kernels captured {g.captured_launches}, "
-                        "want one of each per frame")
+                        f"want {STEP_LAUNCHES} per frame")
     if g.replays != n - 1:
         failures.append(f"{label}: {g.replays} replays for {n - 1} frames")
 
@@ -1733,9 +1812,8 @@ def run_multi_sequence_one_rank(torch, dev, failures):
     captures, apart). Returns (launches, record)."""
     import dataclasses
 
+    from vslam_tpu_torch import ops
     from vslam_tpu_torch.config import VSLAMConfig
-    from vslam_tpu_torch.ops import associate as k2
-    from vslam_tpu_torch.ops import hamming
     from vslam_tpu_torch.parallel import mesh as mesh_mod
     from vslam_tpu_torch.parallel import multi_sequence
     from vslam_tpu_torch.utils import jit
@@ -1764,10 +1842,9 @@ def run_multi_sequence_one_rank(torch, dev, failures):
     with jit.disable_jit():     # no graph of the batch, none of a step
         eager, e_outs, e_wall = run(dataclasses.replace(boot(), graph=None))
     bst = boot()
-    hamming.launches = 0
-    k2.launches = 0
+    ops.reset_launches()
     bst, outs, wall = run(bst)
-    counted = {"hamming": hamming.launches, "associate": k2.launches}
+    counted = ops.launch_counts()
     g = bst.graph
     launches = {k: v * g.replays for k, v in g.captured_launches.items()}
     differs = [(fi, k) for fi, (o, oe) in enumerate(zip(outs, e_outs), 1)
@@ -1790,8 +1867,8 @@ def run_multi_sequence_one_rank(torch, dev, failures):
     if differs:
         failures.append(f"14d: the captured batched step differs from the "
                         f"eager one: {differs[:8]}")
-    if g.replays != MS_FRAMES - 1 or g.captured_launches != {
-            "hamming": len(seeds), "associate": len(seeds)}:
+    if g.replays != MS_FRAMES - 1 \
+            or g.captured_launches != _per_step(len(seeds)):
         failures.append(f"14d: {g.replays} replays, kernels captured "
                         f"{g.captured_launches}")
     return launches, dict(ms=float(np.mean(wall[1:])),
@@ -1817,9 +1894,11 @@ PRELOAD_GAP = 16
 
 
 def _strip(infos):
-    """Infos without the host clock's keys."""
+    """Infos without the host clock's keys (``spans`` holds host-clock
+    timestamps)."""
     return [{k: v for k, v in x.items()
-             if k not in ("wall_s", "t", "capture_s")} for x in infos]
+             if k not in ("wall_s", "t", "capture_s", "spans")}
+            for x in infos]
 
 
 def _timed_run(torch, s, frames):
@@ -1828,12 +1907,10 @@ def _timed_run(torch, s, frames):
     ``synchronize()``. A system loaded from a checkpoint gets an empty
     record for its bootstrap frame, so that infos[i] is frame i. Returns
     the run's record and this rank's shard occupancy."""
-    from vslam_tpu_torch.ops import associate as k2
-    from vslam_tpu_torch.ops import hamming
+    from vslam_tpu_torch import ops
 
     infos = [] if s.state is None else [{}]
-    hamming.launches = 0
-    k2.launches = 0
+    ops.reset_launches()
     wall = []
     for f in frames:
         torch.cuda.synchronize()
@@ -1847,7 +1924,7 @@ def _timed_run(torch, s, frames):
     return dict(
         infos=_strip(infos), poses=s.poses(),
         events=[r for r in s.metrics.records if r.get("kind") == "ba"],
-        launches={"hamming": hamming.launches, "associate": k2.launches},
+        launches=ops.launch_counts(),
         ms=1e3 * float(np.mean(tracked)), wall_ms=[1e3 * w for w in wall],
         shard=(m.capacity, m.desc.shape[0]), local_alive=int(m.alive.sum()))
 
@@ -2070,7 +2147,7 @@ def _check_two_ranks(ranks, p8, ref, shift, n, cfg, failures):
                         for b in bad)
         for name in ("hyp", "pre_off", "pre_hyp"):
             x = res[name]
-            if x["launches"] != {"hamming": n - 1, "associate": n - 1}:
+            if x["launches"] != _per_step(n - 1):
                 failures.append(f"14b rank {r} {name}: launches "
                                 f"{x['launches']} in {n - 1} frames")
             if x["shard"][0] != Cs:
@@ -2205,13 +2282,11 @@ def run_endurance(torch, dev, failures):
     seeds, seed 7's BA events the reference's, and the mean BA-on ATE
     within 1.05 x the reference's mean BA-off ATE + 1e-3. Returns K1/K2
     launches of (a), captured x replays."""
-    from vslam_tpu_torch.ops import associate as k2
-    from vslam_tpu_torch.ops import hamming
+    from vslam_tpu_torch import ops
     from vslam_tpu_torch.tools import endurance, endurance_device as ed
 
     out = tempfile.mkdtemp(prefix="endurance_")
-    hamming.launches = 0
-    k2.launches = 0
+    ops.reset_launches()
     t0 = time.perf_counter()
     rep, det = ed.run(dev, frames=220, out=os.path.join(out, "full"),
                       full=True, chunk=25)
@@ -2248,7 +2323,7 @@ def run_endurance(torch, dev, failures):
                                            "gauge_s", "deep_obs")]))
     _check_report(ed.check, rep, "15a", failures, True)
     _check_state_on_card(torch, s, "15a", failures)
-    if g.captured_launches != {"hamming": 1, "associate": 1} \
+    if g.captured_launches != STEP_LAUNCHES \
             or g.replays != rep["frames"] - 1:
         failures.append(f"15a: kernels captured {g.captured_launches}, "
                         f"{g.replays} replays for {rep['frames'] - 1} frames")
@@ -2413,15 +2488,13 @@ def run_bench(torch, dev, failures):
     mode, so a host sync inside it fails the phase; K1 and K2 must be
     captured once per step body. Returns the report and each kernel's
     launches (captured x replays)."""
-    from vslam_tpu_torch.ops import associate as k2
-    from vslam_tpu_torch.ops import hamming
+    from vslam_tpu_torch import ops
     from vslam_tpu_torch.tools import bench
 
-    hamming.launches = 0
-    k2.launches = 0
+    ops.reset_launches()
     t0 = time.perf_counter()
     report, segments, g = bench.run(dev, seed=17, n_timed=40, log=sys.stdout)
-    captured = {"hamming": hamming.launches, "associate": k2.launches}
+    captured = ops.launch_counts()
     launches = {k: v * g.replays for k, v in g.captured_launches.items()}
     print(f"17a bench: {time.perf_counter() - t0:.1f} s; capture "
           f"{g.capture_s:.2f} s, graph pool peak "
@@ -2437,8 +2510,8 @@ def run_bench(torch, dev, failures):
     print(_smi())
     _check_report(bench.check, report, "17a", failures, segments)
     # the counters hold the capture's launch and the warm-up's eager one
-    if g.captured_launches != {"hamming": 1, "associate": 1} \
-            or captured != {"hamming": 2, "associate": 2}:
+    if g.captured_launches != STEP_LAUNCHES \
+            or captured != _per_step(2):
         failures.append(f"17a: kernels captured {g.captured_launches}, "
                         f"counted {captured}")
     return dict(report=report, segments=segments, launches=launches)
@@ -2463,29 +2536,60 @@ def check_step_mode(step, segments, failures):
 
 
 RATIO_17B = (0.95, 1.10)
+N_PROFILED = 6
+
+
+def profile_here():
+    """Phase 17b's profile, run in the calling process on card 0:
+    ``ops.profile_step`` over ``N_PROFILED`` replays of the carried step at
+    map 51200, its tables and each stage of ``ops.bench_stages`` alone,
+    printed. Returns the figures 17b checks: kernel events by class, the
+    kernels' ms and the replays' CUDA-event ms."""
+    import torch
+    from vslam_tpu_torch.ops import profile_step
+
+    dev = torch.device("cuda", 0)
+    out = tempfile.mkdtemp(prefix="profile_step_")
+    res = profile_step.profile(dev, N_PROFILED, out)
+    print("17b " + res["header"])
+    profile_step.print_tables(res)
+    profile_step.print_stages(profile_step.stage_kernels(
+        dev, os.path.join(out, "stages")))
+    return dict(per=dict(profile_step.by_class(res["ms"], res["count"])[1]),
+                kernel_ms=res["kernel_ms"], event_ms=res["event_ms"],
+                kernels=profile_step.n_kernels(res["count"]))
 
 
 def run_profile(torch, dev, failures):
-    """Phase 17b: ``ops.profile_step`` over 6 replays of the carried step
-    at map 51200: the trace holds kernel events, K1 and K2 once per frame,
-    the kernels' total within ``RATIO_17B`` of the replays' device ms (CUDA
-    events inside the graph, untraced); the tables; each stage of
-    ``ops.bench_stages`` alone, its kernels per replay."""
-    from vslam_tpu_torch.ops import profile_step
-
-    out = tempfile.mkdtemp(prefix="profile_step_")
-    n = 6
-    res = profile_step.profile(dev, n, out)
-    print("17b " + res["header"])
-    profile_step.print_tables(res)
-    per = profile_step.by_class(res["ms"], res["count"])[1]
+    """Phase 17b: ``profile_here`` in a spawned process (its output printed
+    here): the trace holds kernel events, K1 and K2 once per frame and the
+    Jacobi kernel 8 times, the kernels' total within ``RATIO_17B`` of the
+    replays' device ms (CUDA events inside the graph, untraced). Spawned
+    because once torch.profiler has run in a process, the step graphs
+    captured and replayed there read slower (PERF.md §6): 17c's captures
+    in this process come after it."""
+    code = ("import json, chip_smoke; "
+            "print(json.dumps(chip_smoke.profile_here()))")
+    here = os.path.dirname(os.path.abspath(__file__))
+    r = subprocess.run([sys.executable, "-c", code], cwd=here,
+                       capture_output=True, text=True, timeout=900)
+    lines = r.stdout.strip().splitlines()
+    print("\n".join(lines[:-1]))
+    if r.returncode != 0 or not lines:
+        failures.append(f"17b: the profiling process failed: "
+                        f"{r.stderr[-1500:]}")
+        return dict(ratio=float("nan"), ms_frame=float("nan"),
+                    kernels_frame=float("nan"))
+    res = json.loads(lines[-1])
+    n, per = N_PROFILED, res["per"]
     ratio = res["kernel_ms"] / res["event_ms"]
-    print(f"17b: K1 {per['K1 hamming']}, K2 "
-          f"{per['K2 associate']} kernel events over {n} frames; "
-          f"kernels / replays' CUDA-event ms {ratio:.4f}")
-    for k in ("K1 hamming", "K2 associate"):
-        if per[k] != n:
-            failures.append(f"17b: {k} {per[k]} events in {n} frames")
+    print(f"17b: K1 {per.get('K1 hamming')}, K2 {per.get('K2 associate')}, "
+          f"J {per.get('J jacobi')} kernel events over {n} frames; kernels "
+          f"/ replays' CUDA-event ms {ratio:.4f}")
+    for k, want in (("K1 hamming", n), ("K2 associate", n),
+                    ("J jacobi", STEP_LAUNCHES["jacobi"] * n)):
+        if per.get(k) != want:
+            failures.append(f"17b: {k} {per.get(k)} events in {n} frames")
     # on its graph stream the step runs in one mode, where CUPTI's
     # lengthening of its ~1 us kernels puts their traced total 4-5% above
     # the untraced replays (1.0407); a ratio under 0.95 is replays idling
@@ -2494,11 +2598,8 @@ def run_profile(torch, dev, failures):
     if not RATIO_17B[0] <= ratio <= RATIO_17B[1]:
         failures.append(f"17b: kernels {res['kernel_ms']:.3f} ms against "
                         f"{res['event_ms']:.3f} ms of replays (CUDA events)")
-    profile_step.print_stages(profile_step.stage_kernels(
-        dev, os.path.join(out, "stages")))
-    return dict(ratio=ratio,
-                ms_frame=res["kernel_ms"] / n,
-                kernels_frame=profile_step.n_kernels(res["count"]) / n)
+    return dict(ratio=ratio, ms_frame=res["kernel_ms"] / n,
+                kernels_frame=res["kernels"] / n)
 
 
 # phase 17c: captures read in this process and in spawned ones; one mode
@@ -2606,6 +2707,8 @@ def main() -> int:
     phase_done(3)
     k2, k2_map = check_k2(torch, dev, VSLAMConfig(), failures)
     phase_done(4)
+    jac = check_jacobi(torch, dev, failures)
+    phase_done("4j")
     check_step_vs_cpu(torch, dev, failures)
     phase_done(5)
     step_launches, step = run_main_path(torch, dev, failures)
@@ -2654,33 +2757,20 @@ def main() -> int:
     # launches: the SLAM path's (phase 8); the tracking step's own run
     # (phase 6) is kept beside it
     kernels = [
-        dict(name="hamming", route="cuda",
-             source="vslam_tpu_torch/csrc/hamming.cu",
-             replaces="vslam_tpu/ops/pallas_hamming.py:50",
-             launches=launches["hamming"],
-             launches_track_step=step_launches["hamming"],
-             launches_chunked=chunked["launches"]["hamming"],
-             launches_variants=variants["launches"]["hamming"],
-             launches_variants_chunked=variants["chunk"]["launches"][
-                 "hamming"],
-             launches_sharded=sharded_launches["hamming"],
-             launches_multi_sequence=multiseq_launches["hamming"],
-             launches_endurance=endurance_launches["hamming"],
-             launches_bench=bench_res["launches"]["hamming"], **k1),
-        dict(name="associate", route="cuda",
-             source="vslam_tpu_torch/csrc/associate.cu",
-             replaces="vslam_tpu/ops/pallas_associate.py:71",
-             launches=launches["associate"],
-             launches_track_step=step_launches["associate"],
-             launches_chunked=chunked["launches"]["associate"],
-             launches_variants=variants["launches"]["associate"],
-             launches_variants_chunked=variants["chunk"]["launches"][
-                 "associate"],
-             launches_sharded=sharded_launches["associate"],
-             launches_multi_sequence=multiseq_launches["associate"],
-             launches_endurance=endurance_launches["associate"],
-             launches_bench=bench_res["launches"]["associate"], **k2),
-    ]
+        dict(name=k, route="cuda", source=f"vslam_tpu_torch/csrc/{k}.cu",
+             replaces=replaces, launches=launches[k],
+             launches_track_step=step_launches[k],
+             launches_chunked=chunked["launches"][k],
+             launches_variants=variants["launches"][k],
+             launches_variants_chunked=variants["chunk"]["launches"][k],
+             launches_sharded=sharded_launches[k],
+             launches_multi_sequence=multiseq_launches[k],
+             launches_endurance=endurance_launches[k],
+             launches_bench=bench_res["launches"][k], **figures)
+        for k, replaces, figures in (
+            ("hamming", "vslam_tpu/ops/pallas_hamming.py:50", k1),
+            ("associate", "vslam_tpu/ops/pallas_associate.py:71", k2),
+            ("jacobi", "vslam_tpu/ops/jacobi.py:49", jac))]
     for f in failures:
         print("FAIL:", f)
     if failures:

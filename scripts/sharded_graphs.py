@@ -220,7 +220,8 @@ def _failures(recs):
             bad.append(f"rank {i}: gathered multi-sequence poses differ")
         if not r["capturable"]:
             bad.append(f"rank {i}: the NCCL mesh is not capturable")
-        if r["captured_launches"] != {"hamming": 1, "associate": 1}:
+        if r["captured_launches"] != {"hamming": 1, "associate": 1,
+                                      "jacobi": 8}:
             bad.append(f"rank {i}: kernels captured "
                        f"{r['captured_launches']}")
         m = r["modes"]

@@ -266,6 +266,9 @@ KERNEL_NAMES = {
     "const*, int const*, int const*, int const*, int const*, int, float2 "
     "const*, int const*, unsigned char const*, int, float, float, int, "
     "unsigned long long*)": "K2 associate",
+    "void (anonymous namespace)::jacobi_kernel<9>(float const*, long long, "
+    "long long, long long, signed char const*, int, int, float*, float*, "
+    "long long)": "J jacobi",
     "void cutlass::Kernel2<cutlass_80_simt_sgemm_128x64_8x5_nn_align1>("
     "cutlass_80_simt_sgemm_128x64_8x5_nn_align1::Params)": "gemm",
     "sm90_xmma_gemm_f32f32_tf32f32_f32_nn_n_tilesize128x128x32_warpgroup"
@@ -308,6 +311,23 @@ KERNEL_NAMES = {
 @pytest.mark.parametrize("name", list(KERNEL_NAMES))
 def test_classify_cuda_kernel_names(name):
     assert profile_step.classify(name) == KERNEL_NAMES[name]
+
+
+def test_launch_counts_read_every_wrapper(monkeypatch):
+    """``ops.launch_counts`` holds each hand kernel's wrapper counter by
+    name, ``launches_since`` the difference, ``reset_launches`` zeroes
+    them all."""
+    from vslam_tpu_torch import ops
+    from vslam_tpu_torch.ops import associate, hamming, jacobi
+    for m, n in ((hamming, 3), (associate, 5), (jacobi, 7)):
+        monkeypatch.setattr(m, "launches", n)
+    before = ops.launch_counts()
+    assert before == {"hamming": 3, "associate": 5, "jacobi": 7}
+    jacobi.launches += 8
+    assert ops.launches_since(before) == {"hamming": 0, "associate": 0,
+                                          "jacobi": 8}
+    ops.reset_launches()
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
 
 
 def test_aggregate_device_ops(tmp_path):

@@ -22,7 +22,7 @@ from vslam_tpu.geometry import triangulation as jtri
 from vslam_tpu.ops import jacobi as jjacobi
 from vslam_tpu_torch.core import lie
 from vslam_tpu_torch.geometry import pnp, ransac, triangulation
-from vslam_tpu_torch.ops import jacobi
+from vslam_tpu_torch.ops import bench_kernels, jacobi
 
 torch.set_num_threads(2)
 
@@ -46,6 +46,70 @@ def test_jacobi_eigh_matches_reference(n, sweeps):
     np.testing.assert_allclose(w_t.numpy() / scale, np.asarray(w_j) / scale,
                                atol=1e-5)
     np.testing.assert_allclose(V_t.numpy(), np.asarray(V_j), atol=1e-4)
+
+
+@pytest.mark.parametrize("n", range(2, jacobi.MAX_N + 1))
+def test_jacobi_partner_table_is_the_schedule(n):
+    """The table csrc/jacobi.cu reads: round for round the pairs of
+    ``_round_robin_schedule``, every other index its own partner."""
+    table = jacobi._partner_table(n)
+    sched = jacobi._round_robin_schedule(n)
+    assert len(table) == len(sched)
+    for row, pairs in zip(table, sched):
+        assert len(row) == n
+        assert all(row[row[i]] == i for i in range(n))
+        assert sorted((i, p) for i, p in enumerate(row) if i < p) \
+            == sorted(pairs)
+    t = jacobi._table(n, torch.device("cpu"))
+    assert t.dtype == torch.int8 and t.tolist() == [list(r) for r in table]
+
+
+@pytest.mark.parametrize("shape,sweeps", [((9, 9), 6), ((5, 3, 3), 10),
+                                          ((2, 3, 4, 4), 7)])
+def test_jacobi_eigh_on_cpu_is_the_loop(shape, sweeps):
+    """On a CPU tensor ``jacobi_eigh`` is ``jacobi_eigh_plain``, bit for
+    bit, and launches nothing."""
+    g = torch.Generator().manual_seed(sweeps)
+    X = torch.randn(shape[:-2] + (shape[-1] + 2, shape[-1]), generator=g)
+    A = X.mT @ X
+    before = jacobi.launches
+    w, V = jacobi.jacobi_eigh(A, sweeps)
+    w_p, V_p = jacobi.jacobi_eigh_plain(A, sweeps)
+    assert jacobi.launches == before
+    assert torch.equal(w, w_p) and torch.equal(V, V_p)
+
+
+@pytest.mark.parametrize("bad", ["f64", "n10", "n1", "not_square",
+                                 "vector", "cpu"])
+def test_jacobi_kernel_wrapper_refuses_out_of_scope(bad):
+    """``jacobi_eigh_cuda`` raises, before any launch, on what the kernel
+    does not take (the device is checked last, so this runs on the CPU)."""
+    A = {"f64": torch.eye(3, dtype=torch.float64), "n10": torch.eye(10),
+         "n1": torch.eye(1), "not_square": torch.ones((2, 3, 4)),
+         "vector": torch.ones(3), "cpu": torch.eye(3)}[bad]
+    with pytest.raises(ValueError):
+        jacobi.jacobi_eigh_cuda(A)
+
+
+def test_step_eigh_inputs_are_the_step_calls():
+    """``jacobi.STEP_CALLS``, the table the card's parity checks and the
+    kernel races read, is the (shape, sweeps) of every ``jacobi_eigh`` call
+    a default-config step's RANSAC and triangulations make, in order."""
+    calls = bench_kernels.step_eigh_inputs("cpu")
+    assert [(tuple(A.shape), s) for A, s in calls] \
+        == list(jacobi.STEP_CALLS)
+    assert all(A.dtype == torch.float32 and torch.isfinite(A).all()
+               for A, _ in calls)
+
+
+@pytest.mark.parametrize("shape,sweeps,want", [
+    ((2, 3, 3), 1, (4 * 2 * (18 + 3), 2 * 1 * 3 * (13 + 54))),
+    ((9, 9), 4, (4 * (162 + 9), 4 * 36 * (13 + 162))),
+    ((5, 4, 4), 7, (4 * 5 * (32 + 4), 5 * 7 * 6 * (13 + 72)))])
+def test_eigh_work_counts_the_loops_arithmetic(shape, sweeps, want):
+    """Bytes: A read, eigenpairs written; operations: per pair of a round
+    13 for (c, s) and 18 n for the row pass, column pass and V."""
+    assert bench_kernels.eigh_work(shape, sweeps) == want
 
 
 def _two_view(seed=7, outliers=0.15, noise=0.4):

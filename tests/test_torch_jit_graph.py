@@ -35,9 +35,8 @@ import torch
 
 import torch_dist
 import torch_frozen
+from vslam_tpu_torch import ops
 from vslam_tpu_torch.config import BAConfig, VSLAMConfig, small_config
-from vslam_tpu_torch.ops import associate as k2
-from vslam_tpu_torch.ops import hamming as k1
 from vslam_tpu_torch.optimizer import ba
 from vslam_tpu_torch.pipeline import tracker
 from vslam_tpu_torch.utils import jit
@@ -107,18 +106,19 @@ def test_track_step_replays_bit_equal_to_eager(cuda, case):
     cfg, rng = CASES[case]
     frames = _frames(cfg, cuda)
     want_states, want = _steps(cfg, rng, frames, eager=True)
-    before = (k1.launches, k2.launches)
+    before = ops.launch_counts()
     got_states, got = _steps(cfg, rng, frames[:2])
     (g,) = jit.cache().values()
-    assert g.captured_launches == {"hamming": 1, "associate": 1}
-    launched = (k1.launches, k2.launches)
-    assert launched == (before[0] + 2, before[1] + 2)  # warm-up + capture
+    assert g.captured_launches == {"hamming": 1, "associate": 1, "jacobi": 8}
+    assert ops.launches_since(before) == {          # warm-up + capture
+        "hamming": 2, "associate": 2, "jacobi": 16}
+    launched = ops.launch_counts()
     st = got_states[-1]
     for f in frames[2:]:
         st, o = tracker.track_step(st, f, cfg)
         got_states.append(st)
         got.append(o)
-    assert (k1.launches, k2.launches) == launched      # replays only
+    assert ops.launch_counts() == launched             # replays only
     assert g.replays == N_FRAMES - 1 and g.span_ms() > 0
     assert _outs_differ(got, want) == []
     assert _differs(got_states[-1], want_states[-1]) == []
@@ -210,7 +210,8 @@ def test_meshed_track_step_replays_bit_equal(cuda, tmp_path, rng):
                                str(tmp_path))
     assert r["backend"] == "nccl"
     assert r["has_mesh"] and r["replays"] == N_FRAMES - 1
-    assert r["captured_launches"] == {"hamming": 1, "associate": 1}
+    assert r["captured_launches"] == {"hamming": 1, "associate": 1,
+                                      "jacobi": 8}
     assert r["differs"] == []
     assert r["cached_after_shutdown"] == 0
     assert not np.array_equal(r["poses"][0], r["poses"][-1])    # premise

@@ -32,8 +32,7 @@ from torch_frozen import premises as _premises
 from torch_frozen import run as _run
 from torch_frozen import strip as _strip
 from torch_frozen import tensors as _tensors
-from vslam_tpu_torch.ops import associate as k2
-from vslam_tpu_torch.ops import hamming as k1
+from vslam_tpu_torch import ops
 from vslam_tpu_torch.optimizer import ba
 from vslam_tpu_torch.pipeline import keyframes, slam
 from vslam_tpu_torch.utils import checkpoint, jit
@@ -113,14 +112,14 @@ def test_process_graph_bit_equal_to_eager_step_on_cuda(cuda, frames, case):
     ia = [s.process(torch.from_numpy(frames[0]).to(cuda))]
     g = s.step_graph
     assert g.graph is not None and ia[0]["capture_s"] == g.capture_s > 0
-    before = (k1.launches, k2.launches)
+    before = ops.launch_counts()
     oa = []
     for f in frames[1:]:
         ia.append(s.process(torch.from_numpy(f).to(cuda)))
         oa.append(s.last_output)
-    assert (k1.launches, k2.launches) == before   # no eager step ran
+    assert ops.launch_counts() == before          # no eager step ran
     assert g.replays == len(frames) - 1
-    assert g.captured_launches == {"hamming": 1, "associate": 1}
+    assert g.captured_launches == {"hamming": 1, "associate": 1, "jacobi": 8}
     assert not any("capture_s" in x for x in ia[1:])
     _assert_same_run(s, ia, oa, b, ib, ob)
     solved = _premises(s, ia)

@@ -64,7 +64,8 @@ def test_sharded_process_graph_bit_equal(cuda, tmp_path, case):
     assert r["capture_s"] == r["graph_capture_s"] > 0   # at the bootstrap
     assert not r["later_capture"]
     assert r["replays"] == torch_frozen.N_FRAMES - 1
-    assert r["captured_launches"] == {"hamming": 1, "associate": 1}
+    assert r["captured_launches"] == {"hamming": 1, "associate": 1,
+                                      "jacobi": 8}
     assert not r["launched_outside"]                     # no eager step
     assert r["premises"] is None, r["premises"]
     assert r["vs_eager"] is None, r["vs_eager"]

@@ -11,9 +11,10 @@ nothing is traced or jitted. Descriptors are int32 bit-views of the
 reference's uint32 words (torch has no uint32 shifts or scatters on CPU).
 
 The two Pallas TPU kernels of the reference are hand-written CUDA kernels
-here (``csrc/``, wrapped by ``ops/hamming.py`` and ``ops/associate.py``);
-each wrapper runs its plain-torch version on a CPU tensor and launches the
-kernel on a CUDA tensor.
+here (``csrc/``, wrapped by ``ops/hamming.py`` and ``ops/associate.py``),
+as is the batched Jacobi eigensolver (``ops/jacobi.py``); each wrapper
+runs its plain-torch version on a CPU tensor and launches the kernel on a
+CUDA tensor.
 """
 
 __version__ = "0.1.0"

@@ -15,10 +15,14 @@ shapes (the default config):
     points so both tiers find hits): kernel K2 against ``associate_plain``,
     which must agree;
   * 2048 batched 9x9 symmetric eigendecompositions: ``ops.jacobi``'s
-    8-sweep Jacobi against ``torch.linalg.eigh`` (eigenvalues compared).
+    8-sweep Jacobi as the torch loop (``jacobi_eigh_plain``) and as its
+    kernel (``csrc/jacobi.cu``, which must equal the loop bit for bit)
+    against ``torch.linalg.eigh`` (eigenvalues compared); and the kernel,
+    equal to the loop, at each call of the tracking step, on the inputs the
+    step builds (``step_eigh_inputs``).
 
 Every time is a CUDA-event time of single calls (``utils.profiling
-.event_ms``); Jacobi's also of one replay of it captured as a CUDA graph
+.event_ms``); the loop's also of one replay of it captured as a CUDA graph
 (``utils.profiling.graph_ms``). Prints one JSON line with nvidia-smi's name and power limit;
 exits 1 if any formulation disagrees, 2 without a CUDA device.
 """
@@ -34,7 +38,9 @@ import torch
 from ..config import VSLAMConfig
 from ..core import camera as cam
 from ..core.types import empty_map
+from ..datasets import synthetic
 from ..frontend.descriptors import unpack_bits
+from ..geometry import ransac, triangulation
 from ..mapping import point_map
 from ..matching import hamming
 from ..utils.profiling import event_ms, graph_ms, nvidia_smi
@@ -159,22 +165,121 @@ def bench_associate(device, map_sizes=(4096, 51200, 131072), n_kp=3072,
     return rows
 
 
+def _two_view(cfg: VSLAMConfig, device, n: int, seed: int):
+    """n correspondences of a synthetic two-view at the config's camera,
+    20% of them outliers and the rest of the rows invalid padding, as the
+    step's matcher hands them to RANSAC: (uv1, uv2, valid, K)."""
+    cam_ = cfg.camera
+    K = cam_.K()
+    scene = synthetic.make_scene(num_points=4 * n, seed=seed)
+    poses = synthetic.make_trajectory(2, step=0.8, seed=seed)
+    uv1, uv2, vis, _ = synthetic.correspondences(
+        K, poses[0], poses[1], scene.xyz, cam_.width, cam_.height,
+        noise_px=0.5, seed=seed)
+    keep = np.flatnonzero(vis)[:n]
+    rng = np.random.RandomState(seed)
+    pad = lambda a: np.concatenate([a[keep], rng.uniform(
+        0, cam_.height, (n - len(keep), 2)).astype(np.float32)])
+    uv1, uv2 = pad(uv1), pad(uv2)
+    bad = rng.rand(n) < 0.2
+    uv2[bad] = rng.uniform(0, cam_.height, (bad.sum(), 2))
+    valid = np.arange(n) < len(keep)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    return t(uv1), t(uv2), t(valid), t(K.astype(np.float32))
+
+
+def step_eigh_inputs(device, seed: int = 5) -> list:
+    """[(A, sweeps)] of every ``jacobi_eigh`` call the default-config
+    tracking step makes, in the order of ``jacobi.STEP_CALLS``, built by
+    the step's own code: ``ransac_pose_from_samples`` on 3072
+    correspondences of a synthetic two-view and 1024 hypotheses, then
+    ``triangulate_dlt`` with one camera pair for all rows and with one a
+    row (the delayed track's form). The calls are recorded while the torch
+    loop runs them; raises if RANSAC finds no pose."""
+    cfg = VSLAMConfig()
+    device = torch.device(device)
+    uv1, uv2, valid, K = _two_view(cfg, device, 3072, seed)
+    calls = []
+
+    def record(A, sweeps=8):
+        calls.append((A.clone(), sweeps))
+        return jacobi.jacobi_eigh_plain(A, sweeps)
+
+    g = torch.Generator(device=device).manual_seed(3)
+    idx = ransac.sample_minimal_sets(g, valid.float(),
+                                     cfg.ransac.num_hypotheses, 8)
+    run = jacobi.jacobi_eigh
+    jacobi.jacobi_eigh = record
+    try:
+        res = ransac.ransac_pose_from_samples(
+            idx, uv1, uv2, valid, K,
+            inlier_threshold=cfg.ransac.inlier_threshold,
+            min_inliers=cfg.ransac.min_inliers)
+        P1 = torch.cat([K, torch.zeros((3, 1), device=device)], dim=1)
+        P2 = K @ torch.cat([res.R, res.t[:, None]], dim=1)
+        triangulation.triangulate_dlt(P1, P2, uv1, uv2)
+        n = uv1.shape[0]
+        triangulation.triangulate_dlt(P1.expand(n, 3, 4).contiguous(),
+                                      P2.expand(n, 3, 4).contiguous(),
+                                      uv1, uv2)
+    finally:
+        jacobi.jacobi_eigh = run
+    if not bool(res.success):
+        raise RuntimeError("RANSAC found no pose on the two-view")
+    return calls
+
+
+def bits_equal(a, b) -> bool:
+    """a has b's bits wherever b is a number (so -0 and +0 differ) and NaN
+    wherever b is NaN."""
+    nan = torch.isnan(b)
+    return bool(a.shape == b.shape and torch.equal(torch.isnan(a), nan)
+                and torch.equal(torch.where(nan, 0.0, a).view(torch.int32),
+                                torch.where(nan, 0.0, b).view(torch.int32)))
+
+
+def eigh_work(shape, sweeps: int):
+    """(bytes, float operations) of ``jacobi_eigh`` on ``shape`` f32: A read
+    once, eigenvalues and eigenvectors written once; per pair of a round,
+    13 operations for (c, s) and 3 (two products and a sum) for each of the
+    pair's 2 n entries in the row pass, the column pass and V's columns
+    (the sort's n^2 comparisons left out)."""
+    n = shape[-1]
+    batch = int(np.prod(shape[:-2], dtype=np.int64))
+    pairs = sum(len(r) for r in jacobi._round_robin_schedule(n))
+    n_bytes = 4 * batch * (2 * n * n + n)
+    return n_bytes, batch * sweeps * pairs * (13 + 3 * 3 * 2 * n)
+
+
 def bench_eigh(device, batch=2048, reps=20) -> dict:
     g = torch.Generator(device="cpu").manual_seed(3)
     A8 = torch.randn((batch, 8, 9), generator=g).to(device)
     AtA = torch.einsum("bij,bik->bjk", A8, A8)
-    w_jac = jacobi.jacobi_eigh(AtA, sweeps=8)[0]
+    w_jac, V_jac = jacobi.jacobi_eigh_plain(AtA, sweeps=8)
+    w_ker, V_ker = jacobi.jacobi_eigh(AtA, sweeps=8)
     w_lib = torch.linalg.eigh(AtA)[0]
     scale = torch.clamp(w_lib.abs().amax(dim=-1, keepdim=True), min=1e-30)
     rel = float(((w_jac - w_lib).abs() / scale).max())
-    jac = lambda: jacobi.jacobi_eigh(AtA, sweeps=8)
-    return dict(batch=batch, max_rel_eigval_diff=rel, ms={
+    jac = lambda: jacobi.jacobi_eigh_plain(AtA, sweeps=8)
+    equal = bits_equal(w_ker, w_jac) and bits_equal(V_ker, V_jac)
+    step = []
+    for A, sweeps in step_eigh_inputs(device):
+        w, V = jacobi.jacobi_eigh(A, sweeps)
+        w_p, V_p = jacobi.jacobi_eigh_plain(A, sweeps)
+        equal = equal and bits_equal(w, w_p) and bits_equal(V, V_p)
+        step.append(dict(shape=list(A.shape), sweeps=sweeps, ms=event_ms(
+            lambda: jacobi.jacobi_eigh(A, sweeps), reps)))
+    ms = {
         "jacobi_8_sweeps": event_ms(jac, reps),
         # its many small kernels without the host's enqueue, as the
         # chunked driver runs them
         "jacobi_8_sweeps_graph": graph_ms(jac),
+        "jacobi_kernel_8_sweeps": event_ms(
+            lambda: jacobi.jacobi_eigh(AtA, sweeps=8), reps),
         "torch_linalg_eigh": event_ms(lambda: torch.linalg.eigh(AtA), reps),
-    })
+    }
+    return dict(batch=batch, max_rel_eigval_diff=rel,
+                kernel_equal_to_loop=equal, ms=ms, kernel_at_step_calls=step)
 
 
 def main(argv=None) -> int:
@@ -201,6 +306,8 @@ def main(argv=None) -> int:
             if not r["equal"]]
     if res["eigh"]["max_rel_eigval_diff"] > 1e-4:
         bad.append("eigh")
+    if not res["eigh"]["kernel_equal_to_loop"]:
+        bad.append("the Jacobi kernel")
     for b in bad:
         print(f"bench_kernels: {b} disagrees", file=sys.stderr)
     return 1 if bad else 0

@@ -5,14 +5,35 @@ schedule, the same algebraic Givens rotations and the same fixed sweep
 counts. The 8-point fits deliberately run unconverged (4 sweeps inside
 RANSAC), so ``torch.linalg.eigh`` would give other hypotheses; this keeps
 the reference's arithmetic instead.
+
+``jacobi_eigh_plain`` is the sweeps as torch ops, ~50 kernels a round. On a
+CUDA tensor ``jacobi_eigh`` runs them as one launch of ``csrc/jacobi.cu``,
+which reads the schedule as ``_partner_table`` packs it and gives the plain
+version's bits (f32, 2 <= n <= 9, any leading batch shape; anything else
+on the card raises). On the CPU it is the plain version. ``launches``
+counts kernel launches.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
 from ..core.types import device_constant
+from . import _build
+
+launches = 0
+
+MAX_N = 9           # csrc/jacobi.cu's largest matrix
+
+# (shape, sweeps) of the tracking step's calls at the default config, in
+# order: RANSAC's fits (A^T A, then F^T F), stage 1's svd3, the LO's
+# weighted 8-point (A^T A, F^T F) and its svd3, then the two
+# triangulations (ops.bench_kernels.step_eigh_inputs records them)
+STEP_CALLS = (((1024, 9, 9), 4), ((1024, 3, 3), 4), ((1024, 3, 3), 10),
+              ((9, 9), 6), ((3, 3), 8), ((3, 3), 10),
+              ((3072, 4, 4), 7), ((3072, 4, 4), 7))
 
 
 @functools.lru_cache(maxsize=None)
@@ -100,12 +121,74 @@ def _round_step(A, V, ps, qs, pair_of, sign, partner, paired, pair_mask):
     return A, V
 
 
+@functools.lru_cache(maxsize=None)
+def _partner_table(n):
+    """The schedule as the kernel reads it: per round, each index's partner
+    in its pair, or the index itself when it sits the round out."""
+    rows = []
+    for pairs in _round_robin_schedule(n):
+        row = list(range(n))
+        for p, q in pairs:
+            row[p], row[q] = q, p
+        rows.append(tuple(row))
+    return tuple(rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _table(n, device):
+    return device_constant(_partner_table(n), torch.int8, device)
+
+
+@functools.lru_cache(maxsize=1)
+def _entry():
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    return _build.declare("vslam_jacobi",
+                          [p, ll, ll, ll, p, i, i, i, p, p, ll, p])
+
+
+def jacobi_eigh_cuda(A, sweeps: int = 8):
+    """``jacobi_eigh_plain`` on the card in one launch, bit for bit."""
+    global launches
+    n = A.shape[-1]
+    if A.dim() < 2 or A.shape[-2] != n or not 2 <= n <= MAX_N:
+        raise ValueError(f"A: want (..., n, n) with 2 <= n <= {MAX_N}, got "
+                         f"{tuple(A.shape)}")
+    if A.dtype != torch.float32:
+        raise ValueError(f"A: want float32, got {A.dtype}")
+    if A.device.type != "cuda":
+        raise ValueError(f"unsupported device {A.device}")
+    lead = A.shape[:-2]
+    A3 = A.reshape(-1, n, n)            # a view wherever the strides allow
+    evals = torch.empty(lead + (n,), dtype=A.dtype, device=A.device)
+    vecs = torch.empty(A.shape, dtype=A.dtype, device=A.device)
+    if A3.shape[0] == 0:
+        return evals, vecs
+    table = _table(n, A.device)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    with torch.cuda.device(A.device):
+        err = _entry()(A3.data_ptr(), *A3.stride(), table.data_ptr(), n,
+                       table.shape[0], sweeps, evals.data_ptr(),
+                       vecs.data_ptr(), A3.shape[0], stream)
+    _build.check(err, "jacobi kernel")
+    launches += 1
+    return evals, vecs
+
+
 def jacobi_eigh(A, sweeps: int = 8):
     """Symmetric eigendecomposition of (..., n, n), n small.
 
     Returns (eigvals (..., n) ascending, eigvecs (..., n, n) with columns as
-    eigenvectors), like torch.linalg.eigh.
+    eigenvectors), like torch.linalg.eigh. The kernel on a CUDA tensor, the
+    plain version on the CPU.
     """
+    if A.device.type == "cpu":
+        return jacobi_eigh_plain(A, sweeps)
+    return jacobi_eigh_cuda(A, sweeps)
+
+
+def jacobi_eigh_plain(A, sweeps: int = 8):
+    """``jacobi_eigh`` as torch ops: every round of every sweep, then a
+    stable argsort and the gathers it orders."""
     n = A.shape[-1]
     V = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape)
     rounds = _rounds(n, A.device)

@@ -89,6 +89,7 @@ def aggregate_device_ops(trace_dir: str):
 _GROUPS = (
     (("hamming_kernel",), "K1 hamming"),
     (("associate_kernel",), "K2 associate"),
+    (("jacobi_kernel",), "J jacobi"),
     (("memcpy ",), "memcpy"),         # CUPTI's "Memcpy DtoD (...)" events
     (("memset ",), "memset"),
     (("gemm", "gemv", "cutlass", "xmma", "splitkreduce", "dot_kernel"),
@@ -104,7 +105,7 @@ _GROUPS = (
 
 
 def classify(name: str) -> str:
-    """The class of a CUDA kernel (or memcpy / memset) name: the two hand
+    """The class of a CUDA kernel (or memcpy / memset) name: the three hand
     kernels by their symbols, then gemm (cuBLAS, CUTLASS), sort (cub's
     radix sorts), index / scatter / gather, reduce / scan, cat / copy,
     elementwise; else ``other``."""

@@ -48,10 +48,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .. import ops
 from ..config import VSLAMConfig
 from ..mapping import point_map
-from ..ops import associate as k2
-from ..ops import hamming as k1
 from ..parallel.mesh import capturable, keep_captured
 from ..utils import jit
 from ..utils.jit import copy_into as _copy_into
@@ -296,7 +295,7 @@ class ChunkGraph:
         for g in self.gens:
             if g is not None:
                 graph.register_generator_state(g)
-        before = (k1.launches, k2.launches)
+        before = ops.launch_counts()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         if self.span:
@@ -324,8 +323,7 @@ class ChunkGraph:
         graph.instantiate()
         self.row, self.out = row, out
         self.pool_peak_bytes = torch.cuda.max_memory_allocated(dev) - base
-        self.captured_launches = {"hamming": k1.launches - before[0],
-                                  "associate": k2.launches - before[1]}
+        self.captured_launches = ops.launches_since(before)
         self.graph = graph
         self.capture_s = time.perf_counter() - t0
 
