@@ -1,5 +1,6 @@
 """Shared by the readers: a frame record's kind, the traced stretch's
-ordinary frames, and the ordinary frames outside it."""
+ordinary frames, the ordinary frames outside it, and the live map a
+frame searched."""
 
 
 def kind_of(rec: dict) -> str:
@@ -34,3 +35,15 @@ def ordinary_replays(run):
                 kind_of(rec) == "ordinary":
             out.append((rec, replay, run.latencies[i - run.first]))
     return out
+
+
+def live_map(run, index: int):
+    """The insert cursor that frame ``index`` started from: what the frame
+    before records as ``map_size``, or, where that frame's maintenance
+    compacted the map, the size it left. None where the window holds no
+    record of the frame before."""
+    for r in run.records:
+        if r.get("kind") == "map_maintenance" and r.get("frame") == index - 1:
+            return r["size_after"]
+    before = run.frame_record(index - 1)
+    return before.get("map_size") if before is not None else None

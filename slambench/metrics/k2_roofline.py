@@ -1,9 +1,10 @@
 """K2's (search-by-projection's) share of its roofline, in percent: over its
 launches in the traced stretch, the sum of their least times
 (``lib.roofline.k2`` at the configuration's keypoint count and the live
-map the launch searched, the insert cursor that the frame before records
-as ``map_size``) over the sum of their measured times (profiler)."""
+map the launch searched, the insert cursor that the frame started from:
+``_frames.live_map``) over the sum of their measured times (profiler)."""
 from slambench.lib import roofline
+from slambench.metrics._frames import live_map
 
 
 def read(run):
@@ -16,11 +17,10 @@ def read(run):
         if "associate_kernel" not in name:
             continue
         f = run.trace.frame_of(s)
-        before = run.frame_record(f.index - 1) if f is not None else None
-        if before is None or not before.get("map_size"):
+        size = live_map(run, f.index) if f is not None else None
+        if not size:
             continue
-        least += roofline.least_s(*roofline.k2(n, before["map_size"],
-                                               archive))
+        least += roofline.least_s(*roofline.k2(n, size, archive))
         spent += (e - s) * 1e-9
     if spent <= 0:
         return None

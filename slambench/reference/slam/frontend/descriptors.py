@@ -1,4 +1,4 @@
-"""Upright BRIEF descriptors and bit packing.
+"""BRIEF descriptors (upright and steered), orientations and bit packing.
 
 Port of ``vslam_tpu/frontend/descriptors.py``. Descriptors are (N, 8) int32
 bit-views of the reference's uint32 words.
@@ -11,6 +11,11 @@ and then reads the keypoints' 8 words; the value it compares for pair
 clip(xi+x1)]`` of the edge-padded image, which is exactly what a gather at
 the keypoint reads. On a GPU the gather is N*512 loads instead of 256
 whole-image compares.
+
+The steered path (``oriented=True``) is ``orientations_at`` (the dense
+intensity-centroid map, four separable shift-MAC passes in the reference's
+order, then one (N,) gather) and ``describe`` (the pattern rotated by each
+keypoint's angle, rounded to the nearest pixel and gathered).
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch
 
 from ..config import FrontendConfig
 from ..core.types import device_constant
+from .features import _pixel, _sep_filter
 
 _PATTERN_SEED = 42
 
@@ -47,11 +53,39 @@ def _constant(arr: np.ndarray, dtype, device):
     return device_constant(tuple(map(tuple, arr.tolist())), dtype, device)
 
 
-def _pixel(coord, size: int):
-    """round(coord) clipped to [0, size): the reference's
-    ``clip(round(c).astype(int32), 0, size - 1)``, in int64 so a far-off
-    prediction saturates instead of wrapping."""
-    return torch.clamp(torch.round(coord).long(), 0, size - 1)
+def _gather_nearest(img, y, x):
+    """Nearest-neighbour sample of img (H, W) at float coords (any shape),
+    clamped to the borders: round, clip, then one flat index."""
+    H, W = img.shape
+    yi = torch.clamp(torch.round(y), 0, H - 1).long()
+    xi = torch.clamp(torch.round(x), 0, W - 1).long()
+    return img.reshape(-1)[yi * W + xi]
+
+
+def centroid_moments(img, patch_radius: int):
+    """Dense square-window centroid moments (m01, m10), each (H, W):
+    m10 = box_y(ramp_x(I)), m01 = box_x(ramp_y(I)), four separable
+    shift-MAC passes in the reference's order."""
+    r = patch_radius
+    ramp = np.arange(-r, r + 1, dtype=np.float32)
+    box = np.ones(2 * r + 1, dtype=np.float32)
+    m10 = _sep_filter(_sep_filter(img, ramp, r, axis=1), box, r, axis=0)
+    m01 = _sep_filter(_sep_filter(img, ramp, r, axis=0), box, r, axis=1)
+    return m01, m10
+
+
+def orientation_map(img, patch_radius: int):
+    """Dense intensity-centroid orientation, one angle per pixel (a square
+    window: exactly equivariant at multiples of 90 degrees)."""
+    m01, m10 = centroid_moments(img, patch_radius)
+    return torch.atan2(m01, m10)
+
+
+def orientations_at(img, uv, patch_radius: int):
+    """Per-keypoint orientation via the dense map + one (N,) gather."""
+    H, W = img.shape
+    amap = orientation_map(img, patch_radius)
+    return amap[_pixel(uv[:, 1], H), _pixel(uv[:, 0], W)]
 
 
 def pack_bits(bits):
@@ -88,3 +122,26 @@ def describe_dense_upright(img_blurred, uv, cfg: FrontendConfig):
 
     bits = sample(pat[:, 0], pat[:, 1]) < sample(pat[:, 2], pat[:, 3])
     return pack_bits(bits)
+
+
+def steered_pattern(angle, cfg: FrontendConfig):
+    """The BRIEF pattern rotated by each keypoint's angle (N,): four (N, B)
+    offsets (x1, y1, x2, y2)."""
+    pat = _constant(brief_pattern(cfg.descriptor_bits, cfg.patch_radius),
+                    torch.float32, angle.device)             # (B, 4)
+    c = torch.cos(angle)[:, None]
+    s = torch.sin(angle)[:, None]
+
+    def rot(px, py):
+        return c * px[None, :] - s * py[None, :], s * px[None, :] + c * py[None, :]
+
+    return (*rot(pat[:, 0], pat[:, 1]), *rot(pat[:, 2], pat[:, 3]))
+
+
+def describe(img_blurred, uv, angle, cfg: FrontendConfig):
+    """Steered-BRIEF descriptors: img_blurred (H, W), uv (N, 2), angle (N,)
+    radians -> (N, 8) int32 bit-views."""
+    x1, y1, x2, y2 = steered_pattern(angle, cfg)
+    i1 = _gather_nearest(img_blurred, uv[:, 1:2] + y1, uv[:, 0:1] + x1)
+    i2 = _gather_nearest(img_blurred, uv[:, 1:2] + y2, uv[:, 0:1] + x2)
+    return pack_bits(i1 < i2)

@@ -1,10 +1,12 @@
 """Corner detection: separable shift-MAC filters + tiled top-k.
 
-Port of ``vslam_tpu/frontend/features.py``'s ``detect``. The filters stay
-as shift-MACs in the reference's order of operations, not ``F.conv2d``:
-cuDNN runs f32 convolutions in TF32 by default and would reorder the sums.
-Top-k is a stable sort, so ties (``-inf`` padding in sparse tiles) keep the
-lower index first, as ``jax.lax.top_k`` and ``jnp.argsort`` do.
+Port of ``vslam_tpu/frontend/features.py``: ``detect`` and, for mapped-track
+carry, ``refine_tracked`` and ``detect_with_carry``. The filters stay as
+shift-MACs in the reference's order of operations, not ``F.conv2d``: cuDNN
+runs f32 convolutions in TF32 by default and would reorder the sums. Top-k
+and the carry's budget order are stable sorts, so ties (``-inf`` padding
+in sparse tiles, the carried keypoints' collapsed priority) keep the lower
+index first, as ``jax.lax.top_k`` and ``jnp.argsort`` do.
 """
 from __future__ import annotations
 
@@ -123,6 +125,46 @@ def _subpixel_offsets(response, ys, xs):
     return dy, dx
 
 
+def _pixel(coord, size: int):
+    """round(coord) clipped to [0, size): the reference's
+    ``clip(round(c).astype(int32), 0, size - 1)``, in int64 so a far-off
+    prediction saturates instead of wrapping."""
+    return torch.clamp(torch.round(coord).long(), 0, size - 1)
+
+
+def refine_tracked(resp, prev_uv, prev_mask, border: int,
+                   height: int, width: int, radius: int = 3):
+    """Re-localize carried keypoints at the response maximum of the
+    (2r+1)^2 window around their predicted positions: one (N, (2r+1)^2)
+    gather, the first-index argmax, then the sub-pixel offsets. Returns
+    (uv (N, 2), score (N,), ok (N,))."""
+    n = prev_uv.shape[0]
+    xi = _pixel(prev_uv[:, 0], width)
+    yi = _pixel(prev_uv[:, 1], height)
+    d = torch.arange(-radius, radius + 1, device=resp.device)
+    wy = torch.clamp(yi[:, None, None] + d[None, :, None], 0, height - 1)
+    wx = torch.clamp(xi[:, None, None] + d[None, None, :], 0, width - 1)
+    win = resp[wy, wx].reshape(n, -1)                   # (N, (2r+1)^2)
+    score = win.amax(dim=1)
+    flat = torch.argmax(win, dim=1)      # the first index of the max
+    w = 2 * radius + 1
+    ys = torch.clamp(yi + flat // w - radius, 0, height - 1)
+    xs = torch.clamp(xi + flat % w - radius, 0, width - 1)
+    dy, dx = _subpixel_offsets(resp, ys, xs)
+    uv = torch.stack([xs.float() + dx, ys.float() + dy], dim=1)
+    ok = (prev_mask & (xs >= border) & (xs < width - border)
+          & (ys >= border) & (ys < height - border) & (score > 0.0))
+    return uv, score, ok
+
+
+def _chebyshev_within(a, b, r: float):
+    """(Na, Nb) bool: max(|du|, |dv|) <= r, one (Na, Nb) f32 plane at a
+    time."""
+    du = torch.abs(a[:, None, 0] - b[None, :, 0])
+    dv = torch.abs(a[:, None, 1] - b[None, :, 1])
+    return torch.maximum(du, dv) <= r
+
+
 def detect(img, cfg: FrontendConfig, height: int, width: int):
     """Detect corners on a (height, width) grayscale image.
 
@@ -131,6 +173,42 @@ def detect(img, cfg: FrontendConfig, height: int, width: int):
     """
     resp = corner_response(img, cfg.score, cfg.harris_k)
     return _select(resp, cfg, height, width)
+
+
+def detect_with_carry(img, cfg: FrontendConfig, height: int, width: int,
+                      carry_uv, carry_mask):
+    """``detect`` plus carried-keypoint survival (``refine_tracked``).
+
+    Carried keypoints that pass the detector's quality gate outrank fresh
+    detections in the budget. Dedupes use the Chebyshev metric of the
+    detector's square NMS window and one pass of index priority: a carried
+    keypoint yields to any lower-index surviving carry within
+    ``nms_radius``, and a fresh detection yields to any surviving carry
+    within it.
+    """
+    n = cfg.max_keypoints
+    resp = corner_response(img, cfg.score, cfg.harris_k)
+    uv_f, sc_f, ok_f = _select(resp, cfg, height, width)
+    uv_t, sc_t, ok_t = refine_tracked(resp, carry_uv, carry_mask,
+                                      cfg.border, height, width)
+    ok_t = ok_t & (sc_t > cfg.quality_level * torch.max(resp))
+    r_cheb = float(cfg.nms_radius)
+    i = torch.arange(uv_t.shape[0], device=resp.device)
+    clash = (_chebyshev_within(uv_t, uv_t, r_cheb) & ok_t[None, :]
+             & (i[None, :] < i[:, None]))
+    ok_t = ok_t & ~clash.any(dim=1)
+    ok_f = ok_f & ~(_chebyshev_within(uv_f, uv_t, r_cheb)
+                    & ok_t[None, :]).any(dim=1)
+
+    uv = torch.cat([uv_t, uv_f], dim=0)
+    sc = torch.cat([sc_t, sc_f], dim=0)
+    ok = torch.cat([ok_t, ok_f], dim=0)
+    # f32: sc_t + 1e9 rounds every carried score to one value, so carried
+    # keypoints rank by index (the stable sort keeps it)
+    pri = torch.cat([sc_t + 1e9, sc_f], dim=0)
+    order = torch.sort(torch.where(ok, -pri, torch.inf),
+                       stable=True).indices[:n]
+    return uv[order], torch.where(ok, sc, 0.0)[order], ok[order]
 
 
 def _topk_stable(x, k: int):

@@ -1,8 +1,9 @@
 """The per-frame tracking step: bootstrap + track_step.
 
-Port of ``vslam_tpu/pipeline/tracker.py`` with the upright front end, one
-device and the ``torch.Generator`` RANSAC stream: extract -> match (kernel
-K1) -> RANSAC pose -> scale ->
+Port of ``vslam_tpu/pipeline/tracker.py`` (both front-end variants,
+``track_carry`` and ``oriented``), on one device with the
+``torch.Generator`` RANSAC stream: extract (with the mapped-track carry
+when ``track_carry``) -> match (kernel K1) -> RANSAC pose -> scale ->
 pose chain -> map-id propagation -> search-by-projection association
 (kernel K2) -> PnP -> delayed triangulation -> map insert -> landmark
 refine. The reference's comments on each step explain the why; this file
@@ -242,8 +243,28 @@ def _step_impl(state: TrackerState, img, cfg: VSLAMConfig, ops: MapOps):
     GC = ops.global_capacity
     img = torch.as_tensor(img, dtype=torch.float32, device=dev)
 
-    # 1. features
-    feats = extract_features(img, cfg.frontend, H, W)
+    # 1. features; 1b. with track_carry every valid keypoint is carried at
+    # its flow-extrapolated pixel, mapped ones at their landmark's
+    # projection through the constant-velocity pose
+    if cfg.frontend.track_carry:
+        carry_uv = state.prev.uv + state.prev_flow
+        T_cw_pred = lie.inv_T(state.pose @ state.vel)
+        Xm_prev = ops.gather_pt(state.map, state.prev_map_id)[:, PT_XYZ]
+        Xc_pred = torch.einsum("ij,nj->ni", T_cw_pred[:3, :3], Xm_prev) \
+            + T_cw_pred[:3, 3]
+        zp = Xc_pred[:, 2]
+        uvw = Xc_pred @ K.T
+        uv_m = uvw[:, :2] / torch.where(torch.abs(zp) < 1e-6, 1e-6,
+                                        zp)[:, None]
+        use_m = (state.prev_map_id >= 0) & (zp > 0.1)
+        carry_uv = torch.where(use_m[:, None], uv_m, carry_uv)
+        carry_mask = (state.prev.mask
+                      & (carry_uv[:, 0] >= 0) & (carry_uv[:, 0] < W)
+                      & (carry_uv[:, 1] >= 0) & (carry_uv[:, 1] < H))
+        feats = extract_features(img, cfg.frontend, H, W, carry_uv,
+                                 carry_mask)
+    else:
+        feats = extract_features(img, cfg.frontend, H, W)
 
     # 2. frame-to-frame matching, guided by keypoint pixels
     mres = matcher.match(state.prev.desc, state.prev.mask, feats.desc,

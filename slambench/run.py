@@ -13,7 +13,9 @@ A run: builds the system (``SLAMSystem``, whose CUDA kernels load from
 their build directory inside the checkout), makes the scene and every
 frame on the card from ``--seed`` (uint8, as a camera gives them), warms
 up through the first window-BA event (the step graph's capture and the
-event's first use fall in set-up), then hands frames to
+event's first use fall in set-up; a generator that gives
+``prepare(system, traffic, seed, device)``, as ``traffic/fullmap.py`` does,
+has it run once after the warm-up's frame 1), then hands frames to
 ``SLAMSystem.process`` one at a time, each when the previous call has
 returned, for ``--seconds``, and closes the window with a synchronize.
 With ``--trace 1`` torch.profiler covers a stretch of the window that
@@ -249,7 +251,10 @@ def _drive(man, cell, seed, seconds, trace, device, controls, cfg_doc, tr,
     marks["frames"] = time.perf_counter() - _T0
 
     # warm-up: the bootstrap and the step graph's capture, then through the
-    # first window-BA event that solves (its graph's capture and first use)
+    # first window-BA event that solves (its graph's capture and first use);
+    # a generator's ``prepare`` runs once after frame 1, whose outcome the
+    # start's check holds
+    prepare = getattr(gen, "prepare", None)
     start_post = None
     i = 0
     while i < tr["warmup_frames"] or (
@@ -258,6 +263,8 @@ def _drive(man, cell, seed, seconds, trace, device, controls, cfg_doc, tr,
         info = system.process(render.to_float(frames[i]))
         if i == 1:
             start_post = (check.snapshot(system.state), info)
+            if prepare is not None:
+                prepare(system, tr, seed, device)
         i += 1
     _sync(torch, device)
     marks["warmup"] = time.perf_counter() - _T0
@@ -346,6 +353,7 @@ def _drive(man, cell, seed, seconds, trace, device, controls, cfg_doc, tr,
     ate_m = ate.ate_rmse(est.astype("float64"),
                          poses[:len(est)].astype("float64"))[0]
 
+    sizes = [r["map_size"] for r in run.frames if "map_size" in r]
     result = {"attempted": len(run.frames),
               "failed": sum(1 for r in run.frames if not r["success"])}
     metrics = {}
@@ -390,6 +398,10 @@ def _drive(man, cell, seed, seconds, trace, device, controls, cfg_doc, tr,
             "window_s": run.window_s, "warmup_frames": first,
             "slowest": slowest(run, first),
             "setup_marks": marks, "warmup_ba": warm_ba,
+            "map_size": [min(sizes, default=None), max(sizes, default=None)],
+            "window_maintenance": [[r["frame"], r["size_before"],
+                                    r["size_after"]] for r in run.records
+                                   if r.get("kind") == "map_maintenance"],
             "window_ba": [[r["frame"], solved(r)] for r in run.records
                           if r.get("kind") == "ba"]}
     return result, rows, info, control

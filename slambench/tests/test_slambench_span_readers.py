@@ -113,3 +113,55 @@ def test_host_idle_leaves_out_the_replay_and_other_frames():
     assert _read("device.host_idle_ms", r) is None
     r.trace = None
     assert _read("device.host_idle_ms", r) is None
+
+
+def test_associate_and_maintenance_readers():
+    # frames 20-24: 22 ran maintenance, 24 was traced (no replay time)
+    r = srun.Run(None)
+    r.first = 20
+    r.records = [
+        dict(_ORD, frame=20, wall_s=0.03, device_ms={"associate": 0.12}),
+        dict(_ORD, frame=21, wall_s=0.03, device_ms={"associate": 0.18}),
+        dict(_ORD, frame=22, wall_s=0.04, ran_maintenance=True,
+             device_ms={"associate": 9.0},
+             spans=[["step", 0, 10], ["maintenance", 1_000_000, 4_000_000]]),
+        {"kind": "map_maintenance", "frame": 22, "size_before": 117970,
+         "size_after": 109700},
+        dict(_ORD, frame=23, wall_s=0.04, ran_maintenance=True,
+             spans=[["maintenance", 0, 5_000_000]]),
+        dict(_ORD, frame=24, wall_s=0.03, device_ms={"associate": 9.0})]
+    r.replay_s = {20: 0.02, 21: 0.02, 22: 0.02, 23: 0.02}
+    r.latencies = [0.031, 0.031, 0.041, 0.041, 0.031]
+    assert _read("step.associate_ms", r) == pytest.approx(0.15)
+    assert _read("map.maintenance_ms", r) == pytest.approx(4.0)
+    # only maintenances before the traced stretch count
+    r.trace = libtrace.Trace([libtrace.Frame(23, 0, 1)], [])
+    assert _read("map.maintenance_ms", r) == pytest.approx(3.0)
+    r.trace = libtrace.Trace([libtrace.Frame(22, 0, 1)], [])
+    assert _read("map.maintenance_ms", r) is None
+    r.trace = None
+    for rec in r.records:
+        rec.pop("device_ms", None)
+        rec["ran_maintenance"] = False
+    assert _read("step.associate_ms", r) is None
+    assert _read("map.maintenance_ms", r) is None
+
+
+def test_k2_roofline_reads_the_map_a_compaction_left():
+    # frame 2's K2 searched the map that frame 1's maintenance left
+    from slambench.lib import roofline
+    from slambench.metrics._frames import live_map
+
+    r = srun.Run(None)
+    r.cfg = type("C", (), {})()
+    r.cfg.frontend = type("F", (), {"max_keypoints": 3072})()
+    r.cfg.map = type("M", (), {"obs_per_point": 4})()
+    r.trace = _trace()
+    r.records = [dict(_ORD, frame=1, map_size=117970, ran_maintenance=True),
+                 {"kind": "map_maintenance", "frame": 1,
+                  "size_before": 117970, "size_after": 109700}]
+    assert live_map(r, 2) == 109700 and live_map(r, 1) is None
+    want = roofline.least_s(*roofline.k2(3072, 109700, 4)) / 40e-9
+    assert _read("k2_roofline", r) == pytest.approx(100 * want)
+    r.records.pop()
+    assert live_map(r, 2) == 117970
