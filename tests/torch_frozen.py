@@ -156,9 +156,12 @@ TRACING = ("spans", "syncs", "device_ms", "solve_device_ms")
 
 
 def strip(records):
-    """Records without the host clock's keys and the tracing's."""
+    """Records without the host clock's keys, the tracing's and the
+    counters the carry notes (``scan_driver.NOTED``), which the frozen
+    driver's ``TrackOutput`` fetch does not hold."""
     return [{k: v for k, v in r.items()
-             if k not in ("t", "wall_s", "capture_s") + TRACING}
+             if k not in ("t", "wall_s", "capture_s") + TRACING
+             + scan_driver.NOTED}
             for r in records]
 
 

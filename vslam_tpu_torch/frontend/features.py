@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ..config import FrontendConfig
+from ..utils.profiling import note
 
 
 def _clamped_index(n: int, offset: int, device):
@@ -185,6 +186,8 @@ def detect_with_carry(img, cfg: FrontendConfig, height: int, width: int,
     keypoint yields to any lower-index surviving carry within
     ``nms_radius``, and a fresh detection yields to any surviving carry
     within it (the reference explains why the one pass is accepted).
+    Inside ``utils.profiling.noting`` it notes ``num_carried``, the valid
+    keypoints the carry placed, and ``num_keypoints``, every valid one.
     """
     n = cfg.max_keypoints
     resp = corner_response(img, cfg.score, cfg.harris_k)
@@ -208,7 +211,12 @@ def detect_with_carry(img, cfg: FrontendConfig, height: int, width: int,
     pri = torch.cat([sc_t + 1e9, sc_f], dim=0)
     order = torch.sort(torch.where(ok, -pri, torch.inf),
                        stable=True).indices[:n]
-    return uv[order], torch.where(ok, sc, 0.0)[order], ok[order]
+    mask = ok[order]
+    f64 = torch.float64
+    note("num_carried",
+         lambda: (mask & (order < uv_t.shape[0])).sum(dtype=f64))
+    note("num_keypoints", lambda: mask.sum(dtype=f64))
+    return uv[order], torch.where(ok, sc, 0.0)[order], mask
 
 
 def _topk_stable(x, k: int):

@@ -1,11 +1,18 @@
 """Per-frame feature extraction (port of ``vslam_tpu/frontend/frame.py``):
-detect -> orient -> describe into one fixed-capacity FrameFeatures."""
+detect -> orient -> describe into one fixed-capacity FrameFeatures.
+
+With ``oriented`` the steering is marked as two parts of the step's
+``features`` stage (``utils.profiling.mark``): ``features.orient``, the
+blur and the orientations on the dense orientation map, then
+``features.describe``, the steered BRIEF. The upright path holds no mark.
+"""
 from __future__ import annotations
 
 import torch
 
 from ..config import FrontendConfig
 from ..core.types import FrameFeatures
+from ..utils.profiling import mark
 from . import descriptors, features
 
 
@@ -23,11 +30,14 @@ def extract_features(img, cfg: FrontendConfig, height: int, width: int,
             img, cfg, height, width, carry_uv, carry_mask)
     else:
         uv, score, mask = features.detect(img, cfg, height, width)
-    blurred = features.gaussian_blur(img, cfg.blur_sigma)
     if cfg.oriented:
+        mark("features.orient")
+        blurred = features.gaussian_blur(img, cfg.blur_sigma)
         angle = descriptors.orientations_at(blurred, uv, cfg.patch_radius)
+        mark("features.describe")
         desc = descriptors.describe(blurred, uv, angle, cfg)
     else:
+        blurred = features.gaussian_blur(img, cfg.blur_sigma)
         angle = torch.zeros_like(score)
         desc = descriptors.describe_dense_upright(blurred, uv, cfg)
     # zero the descriptors of invalid slots so padded rows can't match

@@ -33,8 +33,9 @@ a mesh is captured with its collectives when the mesh's are capturable
 (``parallel.mesh.capturable``: NCCL); on a gloo mesh it runs eagerly.
 
 Per frame only scalars leave the body: ``pack`` lays them out as one
-float64 row (float64 holds every f32 and every count exactly), and the
-caller fetches all rows of a chunk in one transfer. The body's
+float64 row (float64 holds every f32 and every count exactly), with the
+counters the step ``utils.profiling.note``s (the carry's, ``NOTED``), and
+the caller fetches all rows of a chunk in one transfer. The body's
 ``TrackOutput`` (the match and keypoint arrays ``cli run --save-frames``
 draws) is kept for the chunk's last frame.
 """
@@ -50,6 +51,7 @@ import torch
 
 from .. import ops
 from ..config import VSLAMConfig
+from ..core.types import device_constant
 from ..mapping import point_map
 from ..parallel.mesh import capturable, keep_captured
 from ..utils import jit
@@ -57,7 +59,8 @@ from ..utils.jit import copy_into as _copy_into
 from ..utils.jit import fields as _fields
 from ..utils.jit import tensors as _tensors
 from ..utils.jit import tree_map as _map
-from ..utils.profiling import graph_nodes, recording_marks, use_graph_stream
+from ..utils.profiling import (graph_nodes, noting, recording_marks,
+                               use_graph_stream)
 from . import keyframes as kf_mod
 from . import tracker
 
@@ -78,6 +81,8 @@ class ChunkScalars(NamedTuple):
     num_dropped_inserts: np.ndarray
     map_size: np.ndarray
     map_alive: np.ndarray
+    num_carried: np.ndarray        # noted by the carry; 0 without it
+    num_keypoints: np.ndarray      # noted by the carry; 0 without it
     scale: np.ndarray
     success: np.ndarray
     is_keyframe: np.ndarray
@@ -89,21 +94,30 @@ class ChunkScalars(NamedTuple):
         the reference's types: f32 pose and scale, int counts, bool flags."""
         rows = np.asarray(rows)
         cols = rows[:, 16:].T
-        counts = [c.astype(np.int64) for c in cols[:12]]
+        counts = [c.astype(np.int64) for c in cols[:14]]
         return cls(rows[:, :16].reshape(-1, 4, 4).astype(np.float32),
-                   *counts, cols[12].astype(np.float32),
-                   *(c > 0.5 for c in cols[13:]))
+                   *counts, cols[14].astype(np.float32),
+                   *(c > 0.5 for c in cols[15:]))
 
 
 ROW = 16 + len(ChunkScalars._fields) - 1     # pose words + one per scalar
+# the counters the step notes (``utils.profiling.note``) rather than outputs
+NOTED = ("num_carried", "num_keypoints")
 
 
-def pack(out: tracker.TrackOutput, is_keyframe, ran_maintenance):
-    """One frame's ChunkScalars as a (ROW,) float64 vector."""
+def pack(out: tracker.TrackOutput, is_keyframe, ran_maintenance,
+         noted: dict):
+    """One frame's ChunkScalars as a (ROW,) float64 vector. ``noted``: the
+    float64 counters the step noted; one it did not note reads 0, a cached
+    constant, so a step that notes nothing packs its row with the same
+    kernels as before the counters."""
+    dev = out.pose.device
+    zero = device_constant(0.0, torch.float64, dev)
     names = ChunkScalars._fields[1:-2]
     return torch.cat([
         out.pose.reshape(16).to(torch.float64),
-        torch.stack([getattr(out, k).reshape(()).to(torch.float64)
+        torch.stack([noted.get(k, zero) if k in NOTED
+                     else getattr(out, k).reshape(()).to(torch.float64)
                      for k in names]
                     + [is_keyframe.to(torch.float64),
                        ran_maintenance.to(torch.float64)])])
@@ -150,8 +164,9 @@ def frame_body(st: tracker.TrackerState, sr: kf_mod.KeyframeStore, x,
     ``row`` the frame's ``pack``ed scalars, ``out`` its ``TrackOutput``."""
     img = render_fn(x) if render_fn is not None else x
     frame_no = st.frame_idx
-    st2, out = tracker._step_impl(st, img, cfg, tracker.default_map_ops(
-        cfg, cfg.camera.width, cfg.camera.height))
+    with noting() as noted:
+        st2, out = tracker._step_impl(st, img, cfg, tracker.default_map_ops(
+            cfg, cfg.camera.width, cfg.camera.height))
 
     # keyframe decision (the per-frame driver's, on the device): the flag
     # matches that driver's log; insertion additionally requires success
@@ -174,7 +189,7 @@ def frame_body(st: tracker.TrackerState, sr: kf_mod.KeyframeStore, x,
     sr3 = sr2.replace(
         obs_pid=torch.where(need, obs2, sr2.obs_pid),
         obs_mask=torch.where(need, sr2.obs_mask & (obs2 >= 0), sr2.obs_mask))
-    return st3, sr3, pack(out, do_insert, need), out
+    return st3, sr3, pack(out, do_insert, need, noted), out
 
 
 def step_body(st: tracker.TrackerState, sr, x, cfg: VSLAMConfig, mesh=None,
@@ -185,9 +200,11 @@ def step_body(st: tracker.TrackerState, sr, x, cfg: VSLAMConfig, mesh=None,
     passes through (None: no keyframe store). Returns (state, sr, row,
     out), ``row`` in ``pack``'s layout, ``out`` the step's
     ``TrackOutput``."""
-    st, out = tracker.track_step(st, x, cfg, mesh=mesh, map_axis=map_axis)
+    with noting() as noted:
+        st, out = tracker.track_step(st, x, cfg, mesh=mesh,
+                                     map_axis=map_axis)
     no = torch.zeros_like(out.success)
-    return st, sr, pack(out, no, no), out
+    return st, sr, pack(out, no, no, noted), out
 
 
 class ChunkGraph:

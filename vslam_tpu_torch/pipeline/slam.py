@@ -74,6 +74,12 @@ from . import keyframes, scan_driver, tracker
 _COUNTS = scan_driver.ChunkScalars._fields[1:13]
 
 
+def _counters(cfg: VSLAMConfig):
+    """The counters of a frame's info: ``_COUNTS``, and where the front end
+    carries keypoints (``track_carry``) the ones the carry notes."""
+    return _COUNTS + (scan_driver.NOTED if cfg.frontend.track_carry else ())
+
+
 def _np(x: torch.Tensor) -> np.ndarray:
     """Host numpy copy of a tensor on any device."""
     return x.detach().cpu().numpy()
@@ -229,7 +235,7 @@ class SLAMSystem:
         # the fetch waited for the replay, so its stage events are done
         device_ms = g.stage_ms() if g is not None and g.span else None
         self.trajectory.append(sc.pose[0])
-        counts = {k: int(getattr(sc, k)[0]) for k in _COUNTS}
+        counts = {k: int(getattr(sc, k)[0]) for k in _counters(self.cfg)}
         success = bool(sc.success[0])
 
         inlier_ratio = counts["num_inliers"] / max(counts["num_matches"], 1.0)
@@ -364,7 +370,7 @@ class SLAMSystem:
             self.trajectory.append(sc.pose[i])
             self.metrics.log(
                 kind="frame", frame=self.frame_idx,
-                **{k: int(getattr(sc, k)[i]) for k in _COUNTS},
+                **{k: int(getattr(sc, k)[i]) for k in _counters(self.cfg)},
                 scale=float(sc.scale[i]), success=bool(sc.success[i]),
                 keyframe=bool(sc.is_keyframe[i]), ran_ba=False,
                 ran_maintenance=bool(sc.ran_maintenance[i]))

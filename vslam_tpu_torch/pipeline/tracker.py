@@ -293,8 +293,10 @@ def _step_impl(state: TrackerState, img, cfg: VSLAMConfig, ops: MapOps,
     reference's RANSAC samples through it).
 
     Its stages are ``utils.profiling.mark``ed (features, match, ransac,
-    triangulate, observe, associate, pnp, insert): a step graph captured
-    with ``span=True`` times each (``scan_driver.ChunkGraph.stage_ms``).
+    triangulate, observe, associate, pnp, insert; with the ORB-style
+    front end also features.carry, features.orient and features.describe):
+    a step graph captured with ``span=True`` times each
+    (``scan_driver.ChunkGraph.stage_ms``).
     """
     H, W = cfg.camera.height, cfg.camera.width
     dev = state.pose.device
@@ -307,8 +309,11 @@ def _step_impl(state: TrackerState, img, cfg: VSLAMConfig, ops: MapOps,
     mark("features")
     # 1. features; 1b. with track_carry every valid keypoint is carried at
     # its flow-extrapolated pixel, mapped ones at their landmark's
-    # projection through the constant-velocity pose
+    # projection through the constant-velocity pose (the stage's part
+    # features.carry, which runs to the next mark: with oriented off, the
+    # blur and the upright describe too)
     if cfg.frontend.track_carry:
+        mark("features.carry")
         carry_uv = state.prev.uv + state.prev_flow
         T_cw_pred = lie.inv_T(state.pose @ state.vel)
         Xm_prev = ops.gather_pt(state.map, state.prev_map_id)[:, PT_XYZ]

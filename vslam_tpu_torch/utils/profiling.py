@@ -7,7 +7,8 @@ activity where a card is present) and writes it as Chrome-trace JSON;
 can be read without a trace viewer (``print_trace_summary`` prints them).
 ``mark`` names a stage boundary inside a step graph captured with
 ``span=True`` (``scan_driver.ChunkGraph``), which times each stage of a
-replay by CUDA events (``ChunkGraph.stage_ms``). ``event_ms`` and
+replay by CUDA events (``ChunkGraph.stage_ms``); ``note`` keeps a counter
+of the step on the device for the frame's row (``noting``). ``event_ms`` and
 ``graph_ms`` give device times from CUDA events, for ``ops.bench_kernels``,
 ``ops.bench_stages`` and ``chip_smoke.py``'s graph timing (``capture``
 makes the graph on ``graph_stream``, ``use_graph_stream`` keeps a
@@ -192,6 +193,28 @@ def recording_marks(on: bool = True):
         yield marks
     finally:
         _LOCAL.marks = None
+
+
+def note(name: str, value) -> None:
+    """A counter of the step, kept on the device: inside ``noting``
+    (``scan_driver``'s step and frame bodies, which pack what was noted
+    into the frame's row) ``value()``, a 0-d float64 tensor, is computed
+    and kept under ``name``; anywhere else nothing is computed."""
+    notes = getattr(_LOCAL, "notes", None)
+    if notes is not None:
+        notes[name] = value()
+
+
+@contextmanager
+def noting():
+    """Collect the ``note`` calls of the enclosed block (this thread):
+    yields the {name: tensor} dict they fill."""
+    outer = getattr(_LOCAL, "notes", None)
+    _LOCAL.notes = notes = {}
+    try:
+        yield notes
+    finally:
+        _LOCAL.notes = outer
 
 
 def capture(fn, generators=()) -> "torch.cuda.CUDAGraph":
