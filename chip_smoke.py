@@ -25,6 +25,12 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order
      (RANSAC's fits, stage 1 and LO, both triangulations), one launch a
      call; each call's kernel, loop and torch.linalg.eigh times and the
      kernel's bound from that call's bytes and operations;
+  4g. the polish kernel (``csrc/sampson_gn.cu``) vs the torch ops it
+     replaces, at each of one default-config step's 21 calls
+     (``ops.sampson_gn.STEP_CALLS``) on the inputs the step builds, within
+     ``ops.bench_kernels.polish_gap``'s tolerance, one launch a call; the
+     kernel's and the plain version's times per entry and per step, and
+     the kernel's bound from its bytes and operations;
   5. the tracking step on CUDA vs on the CPU (plain versions), small
      config, the same injected RANSAC samples, per-frame tolerances;
   6. the tracking step: bootstrap + 11 ``track_step`` of the default config
@@ -285,8 +291,9 @@ def _bound(n_bytes, n_ops, ops_per_s):
 
 
 # the hand kernels' launches in one tracking step of the default config:
-# K1 and K2 once, the Jacobi kernel 8 times (ops.jacobi.STEP_CALLS)
-STEP_LAUNCHES = {"hamming": 1, "associate": 1, "jacobi": 8}
+# K1 and K2 once, the Jacobi kernel 8 times (ops.jacobi.STEP_CALLS), the
+# polish kernel 21 times (ops.sampson_gn.STEP_LAUNCHES)
+STEP_LAUNCHES = {"hamming": 1, "associate": 1, "jacobi": 8, "sampson_gn": 21}
 
 
 def _per_step(steps):
@@ -640,6 +647,37 @@ def check_jacobi(torch, dev, failures):
     return dict(max_abs_err=err, ms=total("ms"), plain_ms=total("plain_ms"),
                 library_ms=total("library_ms"), bound_ms=bound_ms,
                 bound_by=bound_by, calls=rows)
+
+
+def check_polish(torch, dev, failures):
+    """Phase 4g: the polish kernel (``csrc/sampson_gn.cu``) against its
+    plain versions at each call of one default-config step
+    (``ops.bench_kernels.bench_polish``), and its times and bound."""
+    from vslam_tpu_torch.ops import bench_kernels as bk
+    from vslam_tpu_torch.ops import sampson_gn
+
+    res = bk.bench_polish(dev)
+    if res["shapes"] != sampson_gn.STEP_CALLS:
+        failures.append(f"G: the step's polishes {res['shapes']} are not "
+                        f"sampson_gn.STEP_CALLS")
+    if not res["widest_gap"] <= 1.0:
+        failures.append(f"G: kernel against plain {res['widest_gap']:.4g} "
+                        "of the tolerance")
+    for name in bk.POLISH_ENTRIES:
+        bound_ms, bound_by = _bound(*res["work"][name], F32_OPS_PER_S)
+        print(f"G {name}: kernel {res['ms'][name]:.4f} ms, plain "
+              f"{res['plain_ms'][name]:.4f} ms (single calls); bound "
+              f"{bound_ms:.3g} ms ({bound_by}); share "
+              f"{bound_ms / res['ms'][name]:.3g}")
+    bound_ms, bound_by = _bound(*res["step_work"], F32_OPS_PER_S)
+    print(f"G per step ({sampson_gn.STEP_LAUNCHES} launches): kernel "
+          f"{res['step_ms']:.4f} ms, plain {res['step_plain_ms']:.4f} ms; "
+          f"bound {bound_ms:.3g} ms ({bound_by}); widest gap "
+          f"{res['widest_gap']:.4g} of the tolerance")
+    return dict(max_abs_err=res["widest_gap"], ms=res["step_ms"],
+                plain_ms=res["step_plain_ms"], library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by,
+                calls={k: res["ms"][k] for k in bk.POLISH_ENTRIES})
 
 
 def _render(cfg, n_frames, scene_kw, step, seed, **traj_kw):
@@ -2584,10 +2622,12 @@ def run_profile(torch, dev, failures):
     n, per = N_PROFILED, res["per"]
     ratio = res["kernel_ms"] / res["event_ms"]
     print(f"17b: K1 {per.get('K1 hamming')}, K2 {per.get('K2 associate')}, "
-          f"J {per.get('J jacobi')} kernel events over {n} frames; kernels "
-          f"/ replays' CUDA-event ms {ratio:.4f}")
+          f"J {per.get('J jacobi')}, G {per.get('G sampson_gn')} kernel "
+          f"events over {n} frames; kernels / replays' CUDA-event ms "
+          f"{ratio:.4f}")
     for k, want in (("K1 hamming", n), ("K2 associate", n),
-                    ("J jacobi", STEP_LAUNCHES["jacobi"] * n)):
+                    ("J jacobi", STEP_LAUNCHES["jacobi"] * n),
+                    ("G sampson_gn", STEP_LAUNCHES["sampson_gn"] * n)):
         if per.get(k) != want:
             failures.append(f"17b: {k} {per.get(k)} events in {n} frames")
     # on its graph stream the step runs in one mode, where CUPTI's
@@ -2709,6 +2749,8 @@ def main() -> int:
     phase_done(4)
     jac = check_jacobi(torch, dev, failures)
     phase_done("4j")
+    pol = check_polish(torch, dev, failures)
+    phase_done("4g")
     check_step_vs_cpu(torch, dev, failures)
     phase_done(5)
     step_launches, step = run_main_path(torch, dev, failures)
@@ -2770,7 +2812,8 @@ def main() -> int:
         for k, replaces, figures in (
             ("hamming", "vslam_tpu/ops/pallas_hamming.py:50", k1),
             ("associate", "vslam_tpu/ops/pallas_associate.py:71", k2),
-            ("jacobi", "vslam_tpu/ops/jacobi.py:49", jac))]
+            ("jacobi", "vslam_tpu/ops/jacobi.py:49", jac),
+            ("sampson_gn", "none (jnp under jit)", pol))]
     for f in failures:
         print("FAIL:", f)
     if failures:

@@ -221,7 +221,7 @@ def _failures(recs):
         if not r["capturable"]:
             bad.append(f"rank {i}: the NCCL mesh is not capturable")
         if r["captured_launches"] != {"hamming": 1, "associate": 1,
-                                      "jacobi": 8}:
+                                      "jacobi": 8, "sampson_gn": 21}:
             bad.append(f"rank {i}: kernels captured "
                        f"{r['captured_launches']}")
         m = r["modes"]

@@ -269,6 +269,9 @@ KERNEL_NAMES = {
     "void (anonymous namespace)::jacobi_kernel<9>(float const*, long long, "
     "long long, long long, signed char const*, int, int, float*, float*, "
     "long long)": "J jacobi",
+    "void (anonymous namespace)::sampson_kernel<true>(float const*, float "
+    "const*, float const*, float const*, float const*, float const*, float "
+    "const*, float*, float*, float*, int)": "G sampson_gn",
     "void cutlass::Kernel2<cutlass_80_simt_sgemm_128x64_8x5_nn_align1>("
     "cutlass_80_simt_sgemm_128x64_8x5_nn_align1::Params)": "gemm",
     "sm90_xmma_gemm_f32f32_tf32f32_f32_nn_n_tilesize128x128x32_warpgroup"
@@ -318,14 +321,16 @@ def test_launch_counts_read_every_wrapper(monkeypatch):
     name, ``launches_since`` the difference, ``reset_launches`` zeroes
     them all."""
     from vslam_tpu_torch import ops
-    from vslam_tpu_torch.ops import associate, hamming, jacobi
-    for m, n in ((hamming, 3), (associate, 5), (jacobi, 7)):
+    from vslam_tpu_torch.ops import associate, hamming, jacobi, sampson_gn
+    for m, n in ((hamming, 3), (associate, 5), (jacobi, 7), (sampson_gn, 2)):
         monkeypatch.setattr(m, "launches", n)
     before = ops.launch_counts()
-    assert before == {"hamming": 3, "associate": 5, "jacobi": 7}
+    assert before == {"hamming": 3, "associate": 5, "jacobi": 7,
+                      "sampson_gn": 2}
     jacobi.launches += 8
+    sampson_gn.launches += 21
     assert ops.launches_since(before) == {"hamming": 0, "associate": 0,
-                                          "jacobi": 8}
+                                          "jacobi": 8, "sampson_gn": 21}
     ops.reset_launches()
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
 

@@ -453,7 +453,8 @@ def test_chunk_matches_process_on_cuda(cuda, case):
     else:
         assert sum(r["success"] for r in rb) >= n - 3
     g = b.chunk_graphs[render]
-    assert g.captured_launches == {"hamming": 1, "associate": 1, "jacobi": 8}
+    assert g.captured_launches == {"hamming": 1, "associate": 1, "jacobi": 8,
+                                  "sampson_gn": 21}
     assert g.replays == n - 1
 
 
@@ -603,7 +604,8 @@ def test_bench_graph_matches_eager_step_on_cuda(cuda, rng):
         .success.sum() >= 3
     for (name, a), (_, b) in zip(_tensors(got), _tensors(want)):
         assert torch.equal(a, b), name
-    assert g.captured_launches == {"hamming": 1, "associate": 1, "jacobi": 8}
+    assert g.captured_launches == {"hamming": 1, "associate": 1, "jacobi": 8,
+                                  "sampson_gn": 21}
     assert g.replays == 4
 
 

@@ -109,9 +109,10 @@ def test_track_step_replays_bit_equal_to_eager(cuda, case):
     before = ops.launch_counts()
     got_states, got = _steps(cfg, rng, frames[:2])
     (g,) = jit.cache().values()
-    assert g.captured_launches == {"hamming": 1, "associate": 1, "jacobi": 8}
+    assert g.captured_launches == {"hamming": 1, "associate": 1, "jacobi": 8,
+                                  "sampson_gn": 21}
     assert ops.launches_since(before) == {          # warm-up + capture
-        "hamming": 2, "associate": 2, "jacobi": 16}
+        "hamming": 2, "associate": 2, "jacobi": 16, "sampson_gn": 42}
     launched = ops.launch_counts()
     st = got_states[-1]
     for f in frames[2:]:
@@ -211,7 +212,7 @@ def test_meshed_track_step_replays_bit_equal(cuda, tmp_path, rng):
     assert r["backend"] == "nccl"
     assert r["has_mesh"] and r["replays"] == N_FRAMES - 1
     assert r["captured_launches"] == {"hamming": 1, "associate": 1,
-                                      "jacobi": 8}
+                                      "jacobi": 8, "sampson_gn": 21}
     assert r["differs"] == []
     assert r["cached_after_shutdown"] == 0
     assert not np.array_equal(r["poses"][0], r["poses"][-1])    # premise

@@ -65,7 +65,7 @@ def test_sharded_process_graph_bit_equal(cuda, tmp_path, case):
     assert not r["later_capture"]
     assert r["replays"] == torch_frozen.N_FRAMES - 1
     assert r["captured_launches"] == {"hamming": 1, "associate": 1,
-                                      "jacobi": 8}
+                                      "jacobi": 8, "sampson_gn": 21}
     assert not r["launched_outside"]                     # no eager step
     assert r["premises"] is None, r["premises"]
     assert r["vs_eager"] is None, r["vs_eager"]

@@ -8,7 +8,10 @@ the system's mesh, if any) and one ``torch.cat`` fetch.
 batched_track_step`` as it was before it could replay a graph: a loop of
 eager ``track_step``s, then one ``all_gather`` a field. Both call the
 step under ``utils.jit.disable_jit``, so on a card too it runs eagerly
-(a direct call there replays a cached graph). numpy, torch and
+(a direct call there replays a cached graph). ``refine_pose_gn`` and
+``refine_pose_gn_multistart`` are ``geometry.epipolar``'s polish as it was
+before its loop body went through ``ops.sampson_gn``: residuals, forward-mode
+Jacobian, normal equations and costs inline. numpy, torch and
 the port only, never jax: the spawned ranks of tests/torch_dist.py and the
 ``gpu`` tests' spawned processes import it.
 """
@@ -18,7 +21,10 @@ import numpy as np
 import torch
 
 from vslam_tpu_torch.config import MapConfig, small_config
+from vslam_tpu_torch.core import lie
+from vslam_tpu_torch.core.types import pick
 from vslam_tpu_torch.datasets import synthetic
+from vslam_tpu_torch.geometry import epipolar
 from vslam_tpu_torch.parallel.mesh import all_gather
 from vslam_tpu_torch.pipeline import keyframes, scan_driver, slam, tracker
 from vslam_tpu_torch.utils import jit
@@ -224,3 +230,118 @@ def eager_batched_track_step(state, imgs, cfg, mesh, axis_name: str):
             (S,) + tuple(f[0].shape))
         for f in zip(*(o for _, o in steps))))
     return dataclasses.replace(state, states=[s for s, _ in steps]), out
+
+
+def _t_basis(t):
+    """(…, 3, 2) orthonormal basis of the plane orthogonal to unit t."""
+    ax = torch.argmin(torch.abs(t), dim=-1)
+    e = (torch.arange(3, device=t.device) == ax[..., None]).to(t.dtype)
+    b1 = torch.linalg.cross(t, e, dim=-1)
+    b1 = b1 / (torch.linalg.vector_norm(b1, dim=-1, keepdim=True) + 1e-12)
+    b2 = torch.linalg.cross(t, b1, dim=-1)
+    return torch.stack([b1, b2], dim=-1)
+
+
+def _sampson_res(params, R0, t0, x1, x2):
+    """Signed normalized Sampson residuals (S, N) of S starts perturbed by
+    params (S, 5) = (rotation tangent, translation-direction tangent)."""
+    dw, dt = params[:, :3], params[:, 3:]
+    Rn = R0 @ lie.so3_exp(dw)
+    tn = t0 + (_t_basis(t0) @ dt[:, :, None])[..., 0]
+    tn = tn / (torch.linalg.vector_norm(tn, dim=-1, keepdim=True) + 1e-12)
+    E = lie.hat(tn) @ Rn
+    Ex1 = torch.einsum("sij,nj->sni", E, x1)
+    Etx2 = torch.einsum("sji,nj->sni", E, x2)
+    num = torch.einsum("ni,sni->sn", x2, Ex1)
+    den = (Ex1[..., 0] * Ex1[..., 0] + Ex1[..., 1] * Ex1[..., 1]
+           + Etx2[..., 0] * Etx2[..., 0] + Etx2[..., 1] * Etx2[..., 1])
+    return num / torch.sqrt(torch.clamp(den, min=1e-18))
+
+
+def _sampson_jac(params, R0, t0, x1, x2):
+    """(S, N, 5) Jacobian of ``_sampson_res`` by forward-mode AD."""
+    f = lambda p: _sampson_res(p, R0, t0, x1, x2)
+    eye = torch.eye(5, dtype=params.dtype, device=params.device)
+    cols = [torch.func.jvp(f, (params,), (eye[k].expand_as(params),))[1]
+            for k in range(5)]
+    return torch.stack(cols, dim=-1)
+
+
+def refine_pose_gn(R, t, K, uv1, uv2, w, iters: int = 16,
+                   huber_px: float = 1.0):
+    """The polish's monolithic loop: every iteration's residuals,
+    Jacobian, normal equations and costs inline."""
+    K_inv = torch.linalg.inv_ex(K)[0]
+    ones = torch.ones_like(uv1[..., :1])
+    x1 = torch.einsum("ij,nj->ni", K_inv, torch.cat([uv1, ones], -1))
+    x2 = torch.einsum("ij,nj->ni", K_inv, torch.cat([uv2, ones], -1))
+    f = 0.5 * (K[0, 0] + K[1, 1])
+    c = huber_px / f                                  # 0-d tensor
+    valid = (w > 0).to(uv1.dtype)
+    S = R.shape[0]
+    eye5 = torch.eye(5, dtype=R.dtype, device=R.device)
+
+    def cost(r):
+        q = r / c
+        return torch.sum(valid * 0.5 * (c * c) * torch.log1p(q * q), dim=-1)
+
+    lam = torch.full((S,), 1e-3, dtype=R.dtype, device=R.device)
+    z = torch.zeros((S, 5), dtype=R.dtype, device=R.device)
+    for _ in range(iters):
+        r = _sampson_res(z, R, t, x1, x2)                     # (S, N)
+        q = r / c
+        rw = valid / (1.0 + q * q)
+        J = _sampson_jac(z, R, t, x1, x2)                     # (S, N, 5)
+        Jw = J * rw[..., None]
+        H = Jw.transpose(-1, -2) @ J                          # (S, 5, 5)
+        g = torch.einsum("snk,sn->sk", Jw, r)
+        dH = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-12)
+        Hd = H + lam[:, None, None] * torch.diag_embed(dH) + 1e-10 * eye5
+        delta = -torch.linalg.solve_ex(Hd, g[..., None])[0][..., 0]
+        r_new = _sampson_res(delta, R, t, x1, x2)
+        better = cost(r_new) < cost(r)
+        delta = torch.where(better[:, None], delta, 0.0)
+        lam = torch.clamp(torch.where(better, lam * 0.25, lam * 8.0),
+                          1e-9, 1e6)
+        R = R @ lie.so3_exp(delta[:, :3])
+        t = t + (_t_basis(t) @ delta[:, 3:, None])[..., 0]
+        t = t / (torch.linalg.vector_norm(t, dim=-1, keepdim=True) + 1e-12)
+    r_fin = _sampson_res(z, R, t, x1, x2)
+    return R, t, cost(r_fin)
+
+
+def refine_pose_gn_multistart(R, t, K, uv1, uv2, w, iters: int = 16,
+                              huber_px: float = 1.0,
+                              spread_deg=(30.0, 60.0),
+                              extra_starts=None):
+    """The multi-start polish over the frozen ``refine_pose_gn``."""
+    B = _t_basis(t)
+    angs = np.deg2rad(np.asarray(spread_deg, np.float32))
+    cs = [(float(c), float(s)) for c, s in zip(np.cos(angs), np.sin(angs))]
+    dirs = []
+    for sx, sy in ((1, 0), (-1, 0), (0, 1), (0, -1)):
+        d = B[:, 0] * sx + B[:, 1] * sy
+        dirs += [c * t + s * d for c, s in cs]
+    t0s = torch.stack([t] + dirs, dim=0)
+    R0s = R.expand((t0s.shape[0], 3, 3))
+    if extra_starts is not None:
+        Re, te = extra_starts
+        t0s = torch.cat([t0s, te], dim=0)
+        R0s = torch.cat([R0s, Re], dim=0)
+    t0s = t0s / (torch.linalg.vector_norm(t0s, dim=1, keepdim=True) + 1e-12)
+
+    Rs, ts, costs = refine_pose_gn(R0s, t0s, K, uv1, uv2, w, iters=iters,
+                                   huber_px=huber_px)
+    costs = torch.where(torch.isnan(costs), torch.inf, costs)
+
+    z1p, z2p = epipolar.triangulate_midpoint_depths(K, Rs, ts, uv1, uv2)
+    z1m, z2m = epipolar.triangulate_midpoint_depths(K, Rs, -ts, uv1, uv2)
+    valid = (w > 0)[None, :]
+    vp = ((z1p > 0) & (z2p > 0) & valid).sum(dim=1)
+    vm = ((z1m > 0) & (z2m > 0) & valid).sum(dim=1)
+    ts = torch.where((vm > vp)[:, None], -ts, ts)
+    votes = torch.maximum(vp, vm)
+    floor = torch.clamp((0.5 * votes.max()).to(votes.dtype), min=1)
+    costs = torch.where(votes >= floor, costs, torch.inf)
+    best = torch.argmin(costs)
+    return pick(Rs, best), pick(ts, best)

@@ -12,9 +12,10 @@ reference's uint32 words (torch has no uint32 shifts or scatters on CPU).
 
 The two Pallas TPU kernels of the reference are hand-written CUDA kernels
 here (``csrc/``, wrapped by ``ops/hamming.py`` and ``ops/associate.py``),
-as is the batched Jacobi eigensolver (``ops/jacobi.py``); each wrapper
-runs its plain-torch version on a CPU tensor and launches the kernel on a
-CUDA tensor.
+as are the batched Jacobi eigensolver (``ops/jacobi.py``) and one
+iteration of RANSAC's Gauss-Newton polish (``ops/sampson_gn.py``); each
+wrapper runs its plain-torch version on a CPU tensor and launches the
+kernel on a CUDA tensor.
 """
 
 __version__ = "0.1.0"

@@ -16,7 +16,7 @@ import torch
 
 from ..core import lie
 from ..core.types import device_constant, pick
-from ..ops import jacobi
+from ..ops import jacobi, sampson_gn
 
 
 def _det3(M):
@@ -156,90 +156,46 @@ def triangulate_midpoint_depths(K, R, t, uv1, uv2):
     return z1, z2
 
 
-def _t_basis(t):
-    """(…, 3, 2) orthonormal basis of the plane orthogonal to unit t."""
-    ax = torch.argmin(torch.abs(t), dim=-1)
-    e = (torch.arange(3, device=t.device) == ax[..., None]).to(t.dtype)
-    b1 = torch.linalg.cross(t, e, dim=-1)
-    b1 = b1 / (torch.linalg.vector_norm(b1, dim=-1, keepdim=True) + 1e-12)
-    b2 = torch.linalg.cross(t, b1, dim=-1)
-    return torch.stack([b1, b2], dim=-1)
-
-
-def _sampson_res(params, R0, t0, x1, x2):
-    """Signed normalized Sampson residuals (S, N) of S starts perturbed by
-    params (S, 5) = (rotation tangent, translation-direction tangent)."""
-    dw, dt = params[:, :3], params[:, 3:]
-    Rn = R0 @ lie.so3_exp(dw)
-    tn = t0 + (_t_basis(t0) @ dt[:, :, None])[..., 0]
-    tn = tn / (torch.linalg.vector_norm(tn, dim=-1, keepdim=True) + 1e-12)
-    E = lie.hat(tn) @ Rn
-    Ex1 = torch.einsum("sij,nj->sni", E, x1)
-    Etx2 = torch.einsum("sji,nj->sni", E, x2)
-    num = torch.einsum("ni,sni->sn", x2, Ex1)
-    den = (Ex1[..., 0] * Ex1[..., 0] + Ex1[..., 1] * Ex1[..., 1]
-           + Etx2[..., 0] * Etx2[..., 0] + Etx2[..., 1] * Etx2[..., 1])
-    return num / torch.sqrt(torch.clamp(den, min=1e-18))
-
-
-def _sampson_jac(params, R0, t0, x1, x2):
-    """(S, N, 5) Jacobian of ``_sampson_res`` by forward-mode AD, one JVP
-    per tangent parameter (the starts are independent, so a tangent that
-    moves parameter k of every start gives column k for all of them)."""
-    f = lambda p: _sampson_res(p, R0, t0, x1, x2)
-    eye = torch.eye(5, dtype=params.dtype, device=params.device)
-    cols = [torch.func.jvp(f, (params,), (eye[k].expand_as(params),))[1]
-            for k in range(5)]
-    return torch.stack(cols, dim=-1)
-
-
 def refine_pose_gn(R, t, K, uv1, uv2, w, iters: int = 16,
                    huber_px: float = 1.0):
     """Robust IRLS Levenberg-Marquardt polish of a batch of starts
     R (S, 3, 3), t (S, 3) on SO(3) x S^2 (Cauchy-robust Sampson error).
 
     Every start runs the reference's ``refine_pose_gn`` (which the reference
-    ``vmap``s over starts); the (N, 5) Jacobian is forward-mode AD over the
-    5 tangent parameters, as the reference's ``jax.jacfwd``.
+    ``vmap``s over starts); the (N, 5) Jacobian is the exact derivative at
+    zero in the 5 tangent parameters, as the reference's ``jax.jacfwd``.
+    Each iteration's normal equations and its trial step's cost come from
+    ``ops.sampson_gn`` (one kernel launch each on a card); the damped
+    solve, the accept test, lambda and the retraction are here.
     Returns (R (S,3,3), t (S,3), final robust cost (S,)).
     """
     K_inv = _inv(K)
     ones = torch.ones_like(uv1[..., :1])
     x1 = torch.einsum("ij,nj->ni", K_inv, torch.cat([uv1, ones], -1))
     x2 = torch.einsum("ij,nj->ni", K_inv, torch.cat([uv2, ones], -1))
+    x1, x2 = x1.contiguous(), x2.contiguous()
     f = 0.5 * (K[0, 0] + K[1, 1])
     c = huber_px / f                                  # 0-d tensor
     valid = (w > 0).to(uv1.dtype)
+    R, t = R.contiguous(), t.contiguous()
     S = R.shape[0]
     eye5 = torch.eye(5, dtype=R.dtype, device=R.device)
-
-    def cost(r):
-        q = r / c
-        return torch.sum(valid * 0.5 * (c * c) * torch.log1p(q * q), dim=-1)
 
     lam = torch.full((S,), 1e-3, dtype=R.dtype, device=R.device)
     z = torch.zeros((S, 5), dtype=R.dtype, device=R.device)
     for _ in range(iters):
-        r = _sampson_res(z, R, t, x1, x2)                     # (S, N)
-        q = r / c
-        rw = valid / (1.0 + q * q)
-        J = _sampson_jac(z, R, t, x1, x2)                     # (S, N, 5)
-        Jw = J * rw[..., None]
-        H = Jw.transpose(-1, -2) @ J                          # (S, 5, 5)
-        g = torch.einsum("snk,sn->sk", Jw, r)
+        H, g, cost = sampson_gn.linearize(R, t, x1, x2, valid, c)
         dH = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), min=1e-12)
         Hd = H + lam[:, None, None] * torch.diag_embed(dH) + 1e-10 * eye5
         delta = -torch.linalg.solve_ex(Hd, g[..., None])[0][..., 0]
-        r_new = _sampson_res(delta, R, t, x1, x2)
-        better = cost(r_new) < cost(r)
+        better = sampson_gn.trial_cost(delta, R, t, x1, x2, valid, c) < cost
         delta = torch.where(better[:, None], delta, 0.0)
         lam = torch.clamp(torch.where(better, lam * 0.25, lam * 8.0),
                           1e-9, 1e6)
         R = R @ lie.so3_exp(delta[:, :3])
-        t = t + (_t_basis(t) @ delta[:, 3:, None])[..., 0]
+        t = t + (sampson_gn.t_basis(t) @ delta[:, 3:, None])[..., 0]
         t = t / (torch.linalg.vector_norm(t, dim=-1, keepdim=True) + 1e-12)
-    r_fin = _sampson_res(z, R, t, x1, x2)
-    return R, t, cost(r_fin)
+    return R, t, sampson_gn.trial_cost(z, R, t, x1, x2, valid, c)
 
 
 def refine_pose_gn_multistart(R, t, K, uv1, uv2, w, iters: int = 16,
@@ -249,7 +205,7 @@ def refine_pose_gn_multistart(R, t, K, uv1, uv2, w, iters: int = 16,
     """Multi-start robust pose polish (see the reference docstring): the
     given (R, t), a fan of translation-direction perturbations, and
     ``extra_starts``; keep the cheirality-supported start of lowest cost."""
-    B = _t_basis(t)
+    B = sampson_gn.t_basis(t)
     # the fan's angles in f32 on the host, as the reference computes them
     angs = np.deg2rad(np.asarray(spread_deg, np.float32))
     cs = [(float(c), float(s)) for c, s in zip(np.cos(angs), np.sin(angs))]

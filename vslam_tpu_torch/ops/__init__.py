@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import importlib
 
-KERNELS = ("hamming", "associate", "jacobi")
+KERNELS = ("hamming", "associate", "jacobi", "sampson_gn")
 
 
 def _module(name):

@@ -19,7 +19,10 @@ shapes (the default config):
     kernel (``csrc/jacobi.cu``, which must equal the loop bit for bit)
     against ``torch.linalg.eigh`` (eigenvalues compared); and the kernel,
     equal to the loop, at each call of the tracking step, on the inputs the
-    step builds (``step_eigh_inputs``).
+    step builds (``step_eigh_inputs``);
+  * RANSAC's polish: the ``sampson_gn`` kernel's linearisation and trial
+    cost against their plain versions at each call of a default-config
+    step, within ``polish_gap``'s tolerance (``bench_polish``).
 
 Every time is a CUDA-event time of single calls (``utils.profiling
 .event_ms``); the loop's also of one replay of it captured as a CUDA graph
@@ -29,6 +32,8 @@ exits 1 if any formulation disagrees, 2 without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import sys
 
@@ -37,16 +42,19 @@ import torch
 
 from ..config import VSLAMConfig
 from ..core import camera as cam
+from ..core import lie
 from ..core.types import empty_map
 from ..datasets import synthetic
 from ..frontend.descriptors import unpack_bits
 from ..geometry import ransac, triangulation
 from ..mapping import point_map
 from ..matching import hamming
+from ..pipeline import tracker
+from ..utils import jit
 from ..utils.profiling import event_ms, graph_ms, nvidia_smi
 from . import associate as k2
 from . import hamming as k1
-from . import jacobi
+from . import jacobi, sampson_gn
 
 
 def random_descriptors(rng, n, device):
@@ -229,6 +237,188 @@ def step_eigh_inputs(device, seed: int = 5) -> list:
     return calls
 
 
+def polish_inputs(device, n: int, seed: int = 3):
+    """``refine_pose_gn``'s arguments on a synthetic two-view of n matches
+    at the default config's camera (``_two_view``: 20% outliers, invalid
+    padding rows): 13 starts, small rotations and random directions, the
+    sixth with an inf in R so that its residuals are NaN. Returns
+    (R (13, 3, 3), t (13, 3), K, uv1, uv2, w (n,) float)."""
+    uv1, uv2, valid, K = _two_view(VSLAMConfig(), device, n, seed)
+    rng = np.random.RandomState(seed)
+    R = lie.so3_exp(torch.from_numpy(
+        rng.randn(13, 3).astype(np.float32) * 0.05)).to(device)
+    R[5, 0, 0] = torch.inf
+    t = rng.randn(13, 3).astype(np.float32)
+    t = torch.from_numpy(t / np.linalg.norm(t, axis=1, keepdims=True))
+    return R, t.to(device), K, uv1, uv2, valid.to(torch.float32)
+
+
+def polish_rays(device, n: int, seed: int = 3):
+    """``sampson_gn``'s arguments from ``polish_inputs``' two-view (of at
+    least 8 matches, the first n kept): (R, t, x1, x2 (n, 3) normalised
+    rays, valid (n,), c), as ``refine_pose_gn`` builds them."""
+    R, t, K, uv1, uv2, w = polish_inputs(device, max(n, 8), seed)
+    K_inv = torch.linalg.inv_ex(K)[0]
+    ones = torch.ones_like(uv1[..., :1])
+    x1, x2 = (torch.einsum("ij,nj->ni", K_inv, torch.cat([uv, ones], -1))
+              [:n].contiguous() for uv in (uv1, uv2))
+    c = 1.0 / (0.5 * (K[0, 0] + K[1, 1]))
+    return R, t, x1, x2, (w[:n] > 0).to(torch.float32), c
+
+
+POLISH_ENTRIES = ("linearize", "trial_cost")
+
+
+@contextlib.contextmanager
+def recording_polish_calls():
+    """Within the block, every ``sampson_gn.linearize`` and ``trial_cost``
+    call is appended to the yielded list as (entry name, its arguments
+    cloned), and runs as it would."""
+    calls = []
+    run = {name: getattr(sampson_gn, name) for name in POLISH_ENTRIES}
+
+    def recorder(name):
+        def call(*args):
+            calls.append((name, [x.clone() for x in args]))
+            return run[name](*args)
+        return call
+
+    for name in POLISH_ENTRIES:
+        setattr(sampson_gn, name, recorder(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in run.items():
+            setattr(sampson_gn, name, fn)
+
+
+def polish_shapes(calls) -> tuple:
+    """The (starts, matches, iterations, polishes) rows of calls recorded
+    by ``recording_polish_calls``, in ``sampson_gn.STEP_CALLS``'s form: a
+    polish is its iterations' (linearize, trial_cost) pairs, then its final
+    trial_cost; consecutive polishes of one shape make one row."""
+    rows, iters, open_pair = [], 0, False
+    for name, args in calls:
+        if name == "linearize":
+            iters, open_pair = iters + 1, True
+        elif open_pair:
+            open_pair = False
+        else:
+            row = (args[1].shape[0], args[3].shape[0], iters)
+            if rows and rows[-1][:3] == row:
+                rows[-1] = row + (rows[-1][3] + 1,)
+            else:
+                rows.append(row + (1,))
+            iters = 0
+    return tuple(rows)
+
+
+def step_polish_calls(frames, cfg, device) -> list:
+    """``recording_polish_calls``' record of eager tracking steps of
+    ``cfg``: ``frames[0]`` bootstraps, each later frame is one
+    ``track_step`` (under ``utils.jit.disable_jit``, so a card runs it
+    eagerly too)."""
+    st = tracker.bootstrap(frames[0], cfg, device, seed=0, rng="torch")
+    with recording_polish_calls() as calls, jit.disable_jit():
+        for f in frames[1:]:
+            st, _ = tracker.track_step(st, f, cfg)
+    return calls
+
+
+def polish_gap(name, args):
+    """The kernel's ``sampson_gn`` entry ``name`` (one launch) against its
+    plain version on ``args``: (widest ratio of the kernel's error to its
+    tolerance, kernel outputs). Errors are taken against the plain version
+    evaluated in float64 on the same inputs, over the sum of each entry's
+    terms' magnitudes M (sum_n |J_na rw_n| |J_nb| for H_ab,
+    sum_n |J_na rw_n| |r_n| for g_a, the cost itself for a cost, whose
+    terms are >= 0). The kernel sums the N matches in its own fixed order
+    (a recursive f32 sum of N terms is within N 2^-24 of M in any order)
+    and rounds each term's dual arithmetic in its own order, where the
+    residual's and the Jacobian's dot products cancel as much as the plain
+    version's do. So in each output the kernel's widest error may be twice
+    the plain version's widest plus (N + 64) 2^-24. Raises unless the
+    kernel is NaN where the plain version is, and launched once."""
+    before = sampson_gn.launches
+    got = getattr(sampson_gn, name)(*args)
+    if sampson_gn.launches != before + 1:
+        raise RuntimeError(f"{name}: {sampson_gn.launches - before} launches")
+    plain = getattr(sampson_gn, f"{name}_plain")
+    want = plain(*args)
+    ref = plain(*(x.double() for x in args))
+    if name == "linearize":
+        R, t, x1, x2, valid, c = (x.double() for x in args)
+        z = torch.zeros((R.shape[0], 5), dtype=R.dtype, device=R.device)
+        r = sampson_gn.sampson_res(z, R, t, x1, x2)
+        J = sampson_gn.sampson_jac(z, R, t, x1, x2)
+        Jw = (J * (valid / (1.0 + (r / c) ** 2))[..., None]).abs()
+        scale = (torch.einsum("sna,snb->sab", Jw, J.abs()),
+                 torch.einsum("sna,sn->sa", Jw, r.abs()), ref[2].abs())
+    else:
+        got, want, ref, scale = (got,), (want,), (ref,), (ref.abs(),)
+    tol = (args[-3].shape[0] + 64) * 2.0 ** -24
+    worst = 0.0
+    for x, y, y64, m in zip(got, want, ref, scale):
+        if not torch.equal(torch.isnan(x), torch.isnan(y)):
+            raise RuntimeError(f"{name}: NaN at other entries than plain")
+        num = ~torch.isnan(y64)
+        if num.any():
+            err = lambda v: float(((v.double() - y64).abs()[num]
+                                   / (m[num] + 1e-300)).max())
+            worst = max(worst, err(x) / (2.0 * err(y) + tol))
+    return worst, got
+
+
+def polish_work(S: int, N: int, name: str):
+    """(bytes, f32 operations) of one ``sampson_gn`` launch: the poses,
+    rays, weights and step read once and the outputs written once; per
+    (start, match) pair 47 operations for the residual and its cost term,
+    and for ``linearize`` 51 for each of the 5 tangents (E's tangent times
+    x1 and x2, num's, den's, the sqrt's and the division's), 9 for the
+    Cauchy weight and the weighted row, and 40 for H's 15 and g's 5
+    sums."""
+    lin = name == "linearize"
+    n_bytes = 4 * (12 * S + 7 * N + 1 + (0 if lin else 5 * S)
+                   + (31 if lin else 1) * S)
+    return n_bytes, S * N * (47 + (5 * 51 + 9 + 40 if lin else 0))
+
+
+def bench_polish(device, reps=20) -> dict:
+    """The polish kernel against its plain versions at each call of one
+    default-config step (its map cut to 4096 slots, which the polish never
+    reads), on the inputs the step builds: the widest gap to the tolerance
+    (``polish_gap``), and each entry's kernel and plain times (single
+    calls); a step's times are 10 linearisations and 11 trial costs."""
+    cfg = VSLAMConfig()
+    cfg = cfg.replace(map=dataclasses.replace(cfg.map, capacity=4096))
+    cam_ = cfg.camera
+    scene = synthetic.make_scene(num_points=700, seed=2,
+                                 extent=(14, 6, 45), z_min=6.0)
+    poses = synthetic.make_trajectory(2, step=0.6, yaw_rate=0.01, seed=2)
+    frames = torch.from_numpy(np.stack(synthetic.render_sequence(
+        cam_.K(), poses, scene, cam_.width, cam_.height))).to(device)
+    calls = step_polish_calls(frames, cfg, device)
+    worst = max(polish_gap(name, args)[0] for name, args in calls)
+    out = dict(shapes=polish_shapes(calls), widest_gap=worst, ms={},
+               plain_ms={}, work={})
+    for name in POLISH_ENTRIES:
+        args = next(a for n, a in calls if n == name)
+        out["ms"][name] = event_ms(
+            lambda: getattr(sampson_gn, name)(*args), reps)
+        plain = getattr(sampson_gn, f"{name}_plain")
+        out["plain_ms"][name] = event_ms(lambda: plain(*args), 3)
+        R = args[0] if name == "linearize" else args[1]
+        out["work"][name] = polish_work(R.shape[0], args[-3].shape[0], name)
+    counts = {"linearize": sum(n == "linearize" for n, _ in calls),
+              "trial_cost": sum(n == "trial_cost" for n, _ in calls)}
+    out["step_ms"] = sum(out["ms"][k] * n for k, n in counts.items())
+    out["step_plain_ms"] = sum(out["plain_ms"][k] * n
+                               for k, n in counts.items())
+    out["step_work"] = [sum(out["work"][k][i] * n for k, n in counts.items())
+                        for i in range(2)]
+    return out
+
+
 def bits_equal(a, b) -> bool:
     """a has b's bits wherever b is a number (so -0 and +0 differ) and NaN
     wherever b is NaN."""
@@ -299,7 +489,8 @@ def main(argv=None) -> int:
     res = dict(device=torch.cuda.get_device_name(dev), smi=nvidia_smi(),
                hamming=bench_hamming(dev, reps=args.reps),
                associate=bench_associate(dev, reps=args.reps),
-               eigh=bench_eigh(dev, reps=args.reps))
+               eigh=bench_eigh(dev, reps=args.reps),
+               polish=bench_polish(dev, reps=args.reps))
     print(json.dumps(res))
     bad = [k for k, v in res["hamming"]["equal_to_k1"].items() if not v]
     bad += [f"associate {r['map_size']}" for r in res["associate"]
@@ -308,6 +499,8 @@ def main(argv=None) -> int:
         bad.append("eigh")
     if not res["eigh"]["kernel_equal_to_loop"]:
         bad.append("the Jacobi kernel")
+    if not res["polish"]["widest_gap"] <= 1.0:
+        bad.append("the polish kernel")
     for b in bad:
         print(f"bench_kernels: {b} disagrees", file=sys.stderr)
     return 1 if bad else 0

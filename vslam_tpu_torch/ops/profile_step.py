@@ -90,6 +90,7 @@ _GROUPS = (
     (("hamming_kernel",), "K1 hamming"),
     (("associate_kernel",), "K2 associate"),
     (("jacobi_kernel",), "J jacobi"),
+    (("sampson_kernel",), "G sampson_gn"),
     (("memcpy ",), "memcpy"),         # CUPTI's "Memcpy DtoD (...)" events
     (("memset ",), "memset"),
     (("gemm", "gemv", "cutlass", "xmma", "splitkreduce", "dot_kernel"),
@@ -105,7 +106,7 @@ _GROUPS = (
 
 
 def classify(name: str) -> str:
-    """The class of a CUDA kernel (or memcpy / memset) name: the three hand
+    """The class of a CUDA kernel (or memcpy / memset) name: the four hand
     kernels by their symbols, then gemm (cuBLAS, CUTLASS), sort (cub's
     radix sorts), index / scatter / gather, reduce / scan, cat / copy,
     elementwise; else ``other``."""
